@@ -1,0 +1,59 @@
+"""The port imports neither JAX nor the JAX package, and its entry points
+run on the card unless the caller asks for the CPU."""
+import inspect
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import neuralplane_tpu_torch
+from neuralplane_tpu_torch.envs import ControlEnv, Env
+from neuralplane_tpu_torch.measure import measure_env_step
+from neuralplane_tpu_torch.ops.aero import load_distilled
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+CHECK = r"""
+import importlib, pkgutil, sys
+import neuralplane_tpu_torch as p
+names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "neuralplane_tpu"))
+print(len(names), bad)
+assert not bad, bad
+"""
+
+
+def test_port_imports_no_jax():
+    env = {**os.environ, "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    r = subprocess.run([sys.executable, "-c", CHECK], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    n_modules = int(r.stdout.split()[0])
+    assert n_modules >= 20, r.stdout
+
+
+@pytest.mark.parametrize("entry", [ControlEnv, Env, load_distilled, measure_env_step])
+def test_entry_points_default_to_cuda(entry):
+    assert inspect.signature(entry).parameters["device"].default == "cuda"
+
+
+def test_control_env_without_device_targets_cuda():
+    """No silent CPU fallback: with no card the default construction fails;
+    with one it lands on the card."""
+    if torch.cuda.is_available():
+        assert ControlEnv(num_envs=4).device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            ControlEnv(num_envs=4)
+
+
+def test_aero_backends_outside_the_port_raise():
+    for backend in ("pallas", "stacked"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ControlEnv(num_envs=4, aero_backend=backend, device="cpu")
+    assert neuralplane_tpu_torch.ControlEnv is ControlEnv
