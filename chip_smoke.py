@@ -223,6 +223,11 @@ def phase_step(w, n, g, dev, table):
             torch.cuda.synchronize()
             err = max(err, compare_step(f"env_step {variant} step {k}", got, want, n))
             if variant == "heading" and k == 0:
+                # the f32-hidden mode on the same inputs
+                err = max(err, compare_step(
+                    "env_step heading hidden_bf16=False",
+                    step_cuda.env_step(*args, hidden_bf16=False),
+                    step_cuda.env_step_plain(*args, hidden_bf16=False), n))
                 timed = dict(
                     ms=cuda_ms(lambda: step_cuda.env_step(*args), 20),
                     plain_ms=cuda_ms(lambda: step_cuda.env_step_plain(*args), 3))
@@ -250,7 +255,7 @@ def ks_distance(a: np.ndarray, b: np.ndarray) -> float:
                         - np.searchsorted(b, grid, side="right") / b.size).max())
 
 
-def phase_draws(w, n, g, dev):
+def phase_draws(w, n, g, dev, table):
     """The kernel's Philox draws: exact host rebuild, then statistics."""
     from neuralplane_tpu_torch.ops import philox, step_cuda
     from neuralplane_tpu_torch.utils.config import load_config
@@ -308,6 +313,10 @@ def phase_draws(w, n, g, dev):
                                       tg, sc, reset_draws=True, generator=g)[7:10]
         ks = [ks_distance(a.cpu().numpy(), b.cpu().numpy()) for a, b in zip(tk, tp)]
         kept = all(torch.equal(got[7 + i][~mask], tg[i][~mask]) for i in range(3))
+        if variant == "heading":   # the main path's mode: draws and noise in the kernel
+            table["env_step"]["ms_with_draws"] = cuda_ms(lambda: step_cuda.env_step(
+                variant, cfg, w, sf, uf, act, mask, None, None, tg, sc, noise_seed=seed,
+                noise_scale=scale, reset_draws=True), 20)
         log(f"phase 5 draws {variant}: targets = host rebuild, step with draws "
             f"agrees; noise mean {mu:+.2e} std {sd:.5f} kurtosis {kurt:.3f} "
             f"lag-corr {corr:+.4f}; KS {['%.4f' % d for d in ks]}; "
@@ -335,6 +344,7 @@ def phase_main(n, steps, table):
         f"finite {finite}, altitude [{alt_lo:.1f}, {alt_hi:.1f}] ft")
     if launches != steps + 1:
         raise Mismatch(f"env_step launched {launches} times for {steps + 1} steps")
+    profile_steps(env, st)
     if not finite or alt_lo < 0.0 or alt_hi > 40000.0:
         raise Mismatch("main path state not finite or altitude out of range")
     # bytes of one main-path step: state, control, action, flags, targets,
@@ -348,6 +358,32 @@ def phase_main(n, steps, table):
     table["env_step"]["launches"] = launches
     table["env_step"]["step_ms"] = r["s_per_step"] * 1e3
     return r
+
+
+def profile_steps(env, st, steps: int = 20) -> None:
+    """Device time by kernel over a short window of main-path steps
+    (torch.profiler; after the counted run, so its launches are not counted).
+    The idle share is 1 - device time / wall time of the window."""
+    from torch.profiler import ProfilerActivity, profile
+    a = torch.zeros((env.n, env.num_actions), device="cuda")
+    a[:, 0] = 1.0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            st, _ = env.step(st, a)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = [(getattr(e, "self_device_time_total", 0.0), e.key, e.count)
+            for e in prof.key_averages()]
+    rows = sorted((r for r in rows if r[0] > 0), reverse=True)
+    busy = sum(r[0] for r in rows)
+    if not rows:
+        log("phase 6 profile: the profiler saw no device time (not measured)")
+        return
+    top = "; ".join(f"{k[:40]} {t / steps:.1f} us/step x{c // steps}" for t, k, c in rows[:5])
+    log(f"phase 6 profile ({steps} steps): device busy {busy / steps:.1f} us/step of "
+        f"{wall_us / steps:.1f} us/step wall, idle share {1 - busy / wall_us:.3f}; {top}")
 
 
 def phase_portable(n, table):
@@ -409,7 +445,7 @@ def main(argv=None) -> int:
     table = {}
     phase_nlplant(w, args.n, g, dev, table)
     phase_step(w, args.n, g, dev, table)
-    phase_draws(w, args.n, g, dev)
+    phase_draws(w, args.n, g, dev, table)
     phase_main(args.n, args.steps, table)
     phase_portable(args.portable_n, table)
 

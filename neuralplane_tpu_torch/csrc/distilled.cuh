@@ -4,15 +4,19 @@
 // TPU's neuralplane_tpu/ops/aero_pallas.py:distilled_feature_rows /
 // distilled_coeff_rows.
 //
-// Layout. A block owns NP_M = 64 aircraft and NP_THREADS = 128 threads
-// (4 warps). The features (bf16, [64][F_LD]) and both hidden layers (bf16,
-// [64][H_LD]) live in shared memory. Each product C[64, N] = A[64, K] W^T
-// runs on WMMA bf16 m16n16k16 tiles with float32 accumulators: a warp owns
-// a 16-column slice of N and all four 16-row tiles of the block, so each
-// weight fragment is read from global memory (L2-resident, ~200 KB in all)
-// once per block and used four times. The readout's raw accumulators go to
-// shared memory coefficient-major ([64 coef][64 aircraft], float32), where
-// the thread of each aircraft reads its 43 coefficients without bank
+// Layout. A block owns NP_M = 64 aircraft and NP_THREADS = 256 threads
+// (8 warps). The features (bf16, [64][F_LD]) and both hidden layers (bf16,
+// [64][H + 8]) live in shared memory. Each product C[64, N] = A[64, K] W^T
+// runs on WMMA bf16 m16n16k16 tiles with float32 accumulators. The weights
+// (~200 KB in all, L2-resident) stream through shared memory in chunks of
+// 64 output columns x 64 K, double-buffered with cp.async: all 128 threads
+// copy chunk c + 1 with 16-byte loads while the warps multiply chunk c, and
+// each chunk is used for all 64 aircraft of the block. Warp w owns columns
+// 16(w % 4)..+15 of every 64-column group and two of the four 16-row tiles
+// (rows 32(w / 4)..+31). The
+// readout's raw accumulators go to shared memory coefficient-major
+// ([64 coef][64 aircraft], float32, over the dead first hidden layer),
+// where the thread of each aircraft reads its 43 coefficients without bank
 // conflicts.
 //
 // Rounding points (the TPU kernel's): features in float32 by division by
@@ -31,14 +35,20 @@ using bf16 = __nv_bfloat16;
 namespace wmma = nvcuda::wmma;
 
 constexpr int NP_M = 64;              // aircraft per block
-constexpr int NP_THREADS = 128;       // 4 warps
+constexpr int NP_THREADS = 256;       // 8 warps
 constexpr int NP_WARPS = NP_THREADS / 32;
-constexpr int MT = NP_M / 16;         // 16-row tiles per block
+constexpr int COL_WARPS = 4;          // warps across the columns of a chunk
+constexpr int ROW_WARPS = NP_WARPS / COL_WARPS;
+constexpr int MT = NP_M / 16 / ROW_WARPS;  // 16-row tiles per warp
 constexpr int N_FEAT = 68;
 constexpr int F_PAD = 80;             // features padded to 5 x 16 (zeros)
 constexpr int F_LD = F_PAD + 8;       // shared-memory row pitch (bank spread)
 constexpr int OUT = 64;               // readout rows, 43 real
 constexpr int N_COEF = 43;
+constexpr int KC = 64;                // K per weight chunk
+constexpr int NG = COL_WARPS * 16;    // output columns per weight chunk
+constexpr int WC_LD = KC + 8;         // chunk row pitch
+constexpr int WCHUNK = NG * WC_LD;    // elements per chunk buffer
 
 // Knots: np.linspace(-20, 90, 45)[1:-1], linspace(-30, 30, 17)[1:-1],
 // linspace(-25, 25, 9)[1:-1]; every knot is exact in float32.
@@ -59,32 +69,44 @@ struct Smem {
   bf16* feat;    // [NP_M][F_LD]
   bf16* h1;      // [NP_M][H + 8]
   bf16* h2;      // [NP_M][H + 8]
-  float* cT;     // [OUT][NP_M], readout accumulators, coefficient-major
+  float* cT;     // [OUT][NP_M] readout accumulators, coefficient-major (over h1)
+  float* io;     // [NP_M][22] staging for coalesced row-major I/O (over h2)
   float* stage;  // [NP_WARPS][256], one 16x16 tile per warp
   float* abe;    // [NP_M][3], alpha_deg, beta_deg, el
-  float* io;     // [NP_M][22], staging for coalesced row-major I/O
+  bf16* wbuf;    // [2][NG][WC_LD] weight chunks
   int h_ld;
 };
 
 __host__ __device__ inline size_t align128(size_t b) { return (b + 127) & ~size_t(127); }
 
+// h1 is dead when the readout writes cT, h2 when the I/O staging is used
+// (before the trunk and after it): each pair shares one region.
+__host__ __device__ inline size_t h1_bytes(int H) {
+  const size_t h = (size_t)NP_M * (H + 8) * 2, c = (size_t)OUT * NP_M * 4;
+  return align128(h > c ? h : c);
+}
+__host__ __device__ inline size_t h2_bytes(int H) {
+  const size_t h = (size_t)NP_M * (H + 8) * 2, o = (size_t)NP_M * 22 * 4;
+  return align128(h > o ? h : o);
+}
+
 __host__ __device__ inline size_t smem_bytes(int H) {
-  const size_t h_ld = H + 8;
-  return align128(NP_M * F_LD * 2) + 2 * align128(NP_M * h_ld * 2)
-         + align128(OUT * NP_M * 4) + align128(NP_WARPS * 256 * 4)
-         + align128(NP_M * 3 * 4) + align128(NP_M * 22 * 4);
+  return align128(NP_M * F_LD * 2) + h1_bytes(H) + h2_bytes(H)
+         + align128(NP_WARPS * 256 * 4) + align128(NP_M * 3 * 4)
+         + align128(2 * WCHUNK * 2);
 }
 
 __device__ inline Smem smem_layout(unsigned char* p, int H) {
   Smem s;
   s.h_ld = H + 8;
   s.feat = reinterpret_cast<bf16*>(p);    p += align128(NP_M * F_LD * 2);
-  s.h1 = reinterpret_cast<bf16*>(p);      p += align128((size_t)NP_M * s.h_ld * 2);
-  s.h2 = reinterpret_cast<bf16*>(p);      p += align128((size_t)NP_M * s.h_ld * 2);
-  s.cT = reinterpret_cast<float*>(p);     p += align128(OUT * NP_M * 4);
+  s.h1 = reinterpret_cast<bf16*>(p);
+  s.cT = reinterpret_cast<float*>(p);     p += h1_bytes(H);
+  s.h2 = reinterpret_cast<bf16*>(p);
+  s.io = reinterpret_cast<float*>(p);     p += h2_bytes(H);
   s.stage = reinterpret_cast<float*>(p);  p += align128(NP_WARPS * 256 * 4);
   s.abe = reinterpret_cast<float*>(p);    p += align128(NP_M * 3 * 4);
-  s.io = reinterpret_cast<float*>(p);
+  s.wbuf = reinterpret_cast<bf16*>(p);
   return s;
 }
 
@@ -107,19 +129,43 @@ __device__ __forceinline__ float feature(int f, float a, float b, float e) {
   return 0.0f;  // padding columns 68..79
 }
 
-// All threads: smem.abe -> smem.feat (bf16). Caller syncs before and after.
+// All threads: smem.abe -> smem.feat (bf16). Thread t takes aircraft
+// t % NP_M and every (NP_THREADS / NP_M)-th pair of feature columns, so the
+// lanes of a warp evaluate the same feature (no divergence) and store two
+// bf16 at a time. Caller syncs before and after.
 __device__ __forceinline__ void build_features(const Smem& sm) {
-  for (int e = threadIdx.x; e < NP_M * F_PAD; e += NP_THREADS) {
-    const int r = e / F_PAD, f = e - r * F_PAD;
-    const float* x = sm.abe + 3 * r;
-    sm.feat[r * F_LD + f] = __float2bfloat16_rn(feature(f, x[0], x[1], x[2]));
-  }
+  constexpr int PARTS = NP_THREADS / NP_M;
+  const int r = threadIdx.x % NP_M;
+  const float a = sm.abe[3 * r], b = sm.abe[3 * r + 1], e = sm.abe[3 * r + 2];
+  __nv_bfloat162* row = reinterpret_cast<__nv_bfloat162*>(sm.feat + r * F_LD);
+  for (int q = threadIdx.x / NP_M; q < F_PAD / 2; q += PARTS)
+    row[q] = __floats2bfloat162_rn(feature(2 * q, a, b, e), feature(2 * q + 1, a, b, e));
 }
 
-// C[64, N] = [A1 | A2][64, K1 + K2] . W^T, W row-major [N][ldw]. Warp w
-// takes the 16-column slices w, w + NP_WARPS, ... With kReadout the raw
-// accumulators go to sm.cT (coefficient-major); otherwise the hidden
-// epilogue (bias, bf16 rounding, ReLU) writes bf16 rows of `out`.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
+}
+
+// All threads: W[g*NG .. g*NG + NG)[k0 .. k0 + kw) -> dst [NG][WC_LD], as
+// 16-byte cp.async copies, committed as one group. kw is a multiple of 16.
+__device__ __forceinline__ void load_chunk(bf16* dst, const bf16* __restrict__ W, int ldw,
+                                           int g, int k0, int kw) {
+  const int segs = kw / 8;
+  for (int e = threadIdx.x; e < NG * segs; e += NP_THREADS) {
+    const int row = e / segs, seg = e - row * segs;
+    cp_async16(dst + row * WC_LD + seg * 8,
+               W + (size_t)(g * NG + row) * ldw + k0 + seg * 8);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// C[64, N] = [A1 | A2][64, K1 + K2] . W^T, W row-major [N][ldw], N a
+// multiple of NG. The weight chunks walk the 64-column groups and, inside
+// each, K; warp w owns 16 columns of the group and MT row tiles. With kReadout the
+// raw accumulators go to sm.cT (coefficient-major); otherwise the hidden
+// epilogue (bias, bf16 rounding, ReLU) writes bf16 rows of `out`. Every
+// thread of the block calls it.
 template <bool kReadout>
 __device__ __forceinline__ void dense(const Smem& sm, const bf16* A1, int lda1, int K1,
                                       const bf16* A2, int lda2, int K2,
@@ -127,35 +173,46 @@ __device__ __forceinline__ void dense(const Smem& sm, const bf16* A1, int lda1, 
                                       const float* __restrict__ bias, bool hidden_bf16,
                                       bf16* out, int ldo) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wc_col = warp % COL_WARPS, row0 = (warp / COL_WARPS) * MT * 16;
   float* stage = sm.stage + warp * 256;
-  for (int n0 = warp * 16; n0 < N; n0 += NP_WARPS * 16) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MT];
+  const int K = K1 + K2;
+  const int kchunks = (K + KC - 1) / KC;
+  const int total = (N / NG) * kchunks;
+  load_chunk(sm.wbuf, W, ldw, 0, 0, min(KC, K));
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MT];
 #pragma unroll
-    for (int r = 0; r < MT; ++r) wmma::fill_fragment(acc[r], 0.0f);
-    for (int k0 = 0; k0 < K1; k0 += 16) {
+  for (int r = 0; r < MT; ++r) wmma::fill_fragment(acc[r], 0.0f);
+  for (int c = 0; c < total; ++c) {
+    const int g = c / kchunks, k0 = (c - g * kchunks) * KC, kw = min(KC, K - k0);
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();  // chunk c is in; every warp is done with chunk c - 1
+    if (c + 1 < total) {
+      const int g1 = (c + 1) / kchunks, k1 = (c + 1 - g1 * kchunks) * KC;
+      load_chunk(sm.wbuf + ((c + 1) & 1) * WCHUNK, W, ldw, g1, k1, min(KC, K - k1));
+    }
+    const bf16* wc = sm.wbuf + (c & 1) * WCHUNK + wc_col * 16 * WC_LD;
+#pragma unroll
+    for (int kk = 0; kk < KC; kk += 16) {
+      if (kk >= kw) break;
+      const int k = k0 + kk;
+      const bf16* A = k < K1 ? A1 + k : A2 + (k - K1);
+      const int lda = k < K1 ? lda1 : lda2;
       wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-      wmma::load_matrix_sync(b, W + (size_t)n0 * ldw + k0, ldw);
+      wmma::load_matrix_sync(b, wc + kk, WC_LD);
 #pragma unroll
       for (int r = 0; r < MT; ++r) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, A1 + r * 16 * lda1 + k0, lda1);
+        wmma::load_matrix_sync(a, A + (row0 + r * 16) * lda, lda);
         wmma::mma_sync(acc[r], a, b, acc[r]);
       }
     }
-    for (int k0 = 0; k0 < K2; k0 += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-      wmma::load_matrix_sync(b, W + (size_t)n0 * ldw + K1 + k0, ldw);
-#pragma unroll
-      for (int r = 0; r < MT; ++r) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, A2 + r * 16 * lda2 + k0, lda2);
-        wmma::mma_sync(acc[r], a, b, acc[r]);
-      }
-    }
+    if (k0 + kw < K) continue;
+    // the group's last chunk: write this warp's 16 columns
+    const int n0 = g * NG + wc_col * 16;
     if constexpr (kReadout) {
 #pragma unroll
       for (int r = 0; r < MT; ++r)
-        wmma::store_matrix_sync(sm.cT + n0 * NP_M + r * 16, acc[r], NP_M,
+        wmma::store_matrix_sync(sm.cT + n0 * NP_M + row0 + r * 16, acc[r], NP_M,
                                 wmma::mem_col_major);
     } else {
 #pragma unroll
@@ -167,11 +224,13 @@ __device__ __forceinline__ void dense(const Smem& sm, const bf16* A1, int lda1, 
           const float v = stage[e], bb = bias[n0 + cc];
           float h = hidden_bf16 ? bf16_round(bf16_round(v) + bf16_round(bb)) : v + bb;
           h = fmaxf(h, 0.0f);
-          out[(r * 16 + rr) * ldo + n0 + cc] = __float2bfloat16_rn(h);
+          out[(row0 + r * 16 + rr) * ldo + n0 + cc] = __float2bfloat16_rn(h);
         }
         __syncwarp();
       }
     }
+#pragma unroll
+    for (int r = 0; r < MT; ++r) wmma::fill_fragment(acc[r], 0.0f);
   }
 }
 

@@ -19,13 +19,15 @@
 // (~0.09 ms at 3.35 TB/s): the tensor cores bound it.
 //
 // Design. Products as in nlplant_distilled.cu (distilled.cuh: WMMA bf16,
-// weights fetched once per block from L2, activations in shared memory);
+// weights streamed through shared memory, activations in shared memory);
 // everything elementwise is one thread per aircraft in registers, with
 // feature-major state reads/writes coalesced across the block and the
 // [n, 22] observation staged through shared memory. The six counts are
 // warp ballots, then one atomicAdd per warp and condition into int32.
 // Random draws: Philox4x32-10 keyed by two seed words read from device
-// memory (no host sync per step), counter (aircraft, draw block).
+// memory (no host sync per step), counter (aircraft, draw block); the
+// sensor noise (6 blocks and 12 Box-Muller pairs per aircraft) is spread
+// over all threads of the block, not only the 64 that own an aircraft.
 #include <cuda_runtime.h>
 
 #include "distilled.cuh"
@@ -102,7 +104,7 @@ __device__ __forceinline__ void resample_targets(const StepParams& p, float d2, 
   }
 }
 
-__global__ void __launch_bounds__(NP_THREADS)
+__global__ void __launch_bounds__(NP_THREADS, 2)
 env_step_kernel(StepIO io, Weights w, StepParams p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const Smem sm = smem_layout(smem_raw, p.H);
@@ -175,6 +177,28 @@ env_step_kernel(StepIO io, Weights w, StepParams p) {
   // 3. surrogate at (post-reset s, lagged u)
   trunk(sm, w, p.H, p.hidden_bf16 != 0);
 
+  if (p.noise_scale > 0.0f) {
+    // sensor noise, spread over all threads: item (aircraft r, q) draws
+    // counter blocks 2 + q (radii) and 5 + q (angles) and writes the
+    // Box-Muller pairs of observation slots k and 12 + k, k = 4q..4q+3
+    const uint2 key = make_uint2((uint32_t)io.seed[0], (uint32_t)io.seed[1]);
+    for (int item = t; item < nv * 3; item += NP_THREADS) {
+      const int r = item / 3, q = item - 3 * r;
+      const float4 ur = np_rng::uniform4(key, (uint32_t)(i0 + r), 2u + q);
+      const float4 ut = np_rng::uniform4(key, (uint32_t)(i0 + r), 5u + q);
+      const float rad_u[4] = {ur.x, ur.y, ur.z, ur.w}, ang_u[4] = {ut.x, ut.y, ut.z, ut.w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int k = 4 * q + c;
+        const float rad = sqrtf(-2.0f * logf(fmaxf(rad_u[c], 1e-7f)));
+        const float th = (float)(2.0 * PI_D) * ang_u[c];
+        sm.io[r * 22 + k] = rad * cosf(th) * p.noise_scale;
+        if (12 + k < 22) sm.io[r * 22 + 12 + k] = rad * sinf(th) * p.noise_scale;
+      }
+    }
+    __syncthreads();
+  }
+
   if (own) {  // warp-uniform: warps 0 and 1
     bool conds[6] = {false, false, false, false, false, false};
     if (valid) {
@@ -192,24 +216,8 @@ env_step_kernel(StepIO io, Weights w, StepParams p) {
       float rew;
       np_task::task_rows(p.variant, tc, sn, u, xd, tr, sc, obs, conds, done, bad, rew);
       if (p.noise_scale > 0.0f) {
-        // 24 uniforms (counter blocks 2..7) -> 12 radii x (cos, sin)
-        const uint2 key = make_uint2((uint32_t)io.seed[0], (uint32_t)io.seed[1]);
-        float uu[24];
 #pragma unroll
-        for (int b = 0; b < 6; ++b) {
-          const float4 d = np_rng::uniform4(key, (uint32_t)i, 2u + b);
-          uu[4 * b] = d.x;
-          uu[4 * b + 1] = d.y;
-          uu[4 * b + 2] = d.z;
-          uu[4 * b + 3] = d.w;
-        }
-#pragma unroll
-        for (int k = 0; k < 12; ++k) {
-          const float r = sqrtf(-2.0f * logf(fmaxf(uu[k], 1e-7f)));
-          const float th = (float)(2.0 * PI_D) * uu[12 + k];
-          obs[k] = obs[k] + r * cosf(th) * p.noise_scale;
-          if (12 + k < 22) obs[12 + k] = obs[12 + k] + r * sinf(th) * p.noise_scale;
-        }
+        for (int j = 0; j < 22; ++j) obs[j] = obs[j] + sm.io[t * 22 + j];
       }
 #pragma unroll
       for (int j = 0; j < 12; ++j) io.sf_out[(size_t)j * n + i] = sn[j];

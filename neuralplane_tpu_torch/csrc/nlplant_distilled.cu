@@ -13,11 +13,11 @@
 //
 // Design. The three products run on tensor cores (WMMA bf16, float32
 // accumulators, distilled.cuh); features, hidden layers and the readout stay
-// in shared memory, and each weight fragment is fetched once per block from
-// L2 and used for all 64 aircraft of the block. The elementwise nlplant is
-// one thread per aircraft, in registers. State and control rows are staged
-// through shared memory so that the [n, 12] / [n, 5] reads and the [n, 12]
-// write are coalesced.
+// in shared memory, and the weights stream from L2 through shared memory in
+// double-buffered 64 x 64 chunks, each used for all 64 aircraft of the
+// block. The elementwise nlplant is one thread per aircraft, in registers.
+// State and control rows are staged through shared memory so that the
+// [n, 12] / [n, 5] reads and the [n, 12] write are coalesced.
 #include <cuda_runtime.h>
 
 #include "distilled.cuh"
@@ -25,7 +25,7 @@
 
 using namespace np_dist;
 
-__global__ void __launch_bounds__(NP_THREADS)
+__global__ void __launch_bounds__(NP_THREADS, 2)
 nlplant_distilled_kernel(const float* __restrict__ s, const float* __restrict__ u,
                          float* __restrict__ xdot, int n, Weights w, int H,
                          bool hidden_bf16) {

@@ -76,8 +76,8 @@ class DistilledAeroWeights:
         same way; W2 and the float32 vectors as they are."""
         if self._packed is None:
             H, F = self.W1.shape
-            if H % 16 or F != distill.N_FEAT:
-                raise ValueError(f"kernels need H % 16 == 0 and F == "
+            if H % 64 or F != distill.N_FEAT:
+                raise ValueError(f"kernels need H % 64 == 0 and F == "
                                  f"{distill.N_FEAT}; got H={H}, F={F}")
             w1p = torch.zeros(H, F_PAD, dtype=torch.bfloat16, device=self.device)
             w1p[:, :F] = self.W1
