@@ -18,8 +18,9 @@
 // 2.07e11 FLOP (0.21 ms at 989 TFLOP/s dense bf16) against ~0.3 GB
 // (~0.09 ms at 3.35 TB/s): the tensor cores bound it.
 //
-// Design. Products as in nlplant_distilled.cu (distilled.cuh: WMMA bf16,
-// weights streamed through shared memory, activations in shared memory);
+// Design. Products as in nlplant_distilled.cu (distilled.cuh: mma.sync
+// bf16, weights streamed through shared memory, activations in shared
+// memory);
 // everything elementwise is one thread per aircraft in registers, with
 // feature-major state reads/writes coalesced across the block and the
 // [n, 22] observation staged through shared memory. The six counts are
@@ -107,7 +108,7 @@ __device__ __forceinline__ void resample_targets(const StepParams& p, float d2, 
 __global__ void __launch_bounds__(NP_THREADS, 2)
 env_step_kernel(StepIO io, Weights w, StepParams p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const Smem sm = smem_layout(smem_raw, p.H);
+  const Smem sm = smem_layout(smem_raw);
   const int t = threadIdx.x;
   const int n = p.n;
   const int i0 = blockIdx.x * NP_M;
@@ -175,7 +176,7 @@ env_step_kernel(StepIO io, Weights w, StepParams p) {
   build_features(sm);
   __syncthreads();
   // 3. surrogate at (post-reset s, lagged u)
-  trunk(sm, w, p.H, p.hidden_bf16 != 0);
+  trunk(sm, w, p.hidden_bf16 != 0);
 
   if (p.noise_scale > 0.0f) {
     // sensor noise, spread over all threads: item (aircraft r, q) draws
@@ -255,7 +256,8 @@ int np_env_step(const float* sf, const float* uf, const float* act, const bool* 
                 StepParams p, float* sf_out, float* uf_out, float* obs, bool* done,
                 bool* bad, float* reward, int* counts, float* tg0_out, float* tg1_out,
                 float* tg2_out, void* stream) {
-  const size_t smem = smem_bytes(p.H);
+  if (p.H != NP_H) return (int)cudaErrorInvalidValue;
+  const size_t smem = SMEM_BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       env_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

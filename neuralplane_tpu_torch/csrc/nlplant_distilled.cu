@@ -11,13 +11,13 @@
 // dense bf16) against 1.16e8 B (0.035 ms at 3.35 TB/s): the tensor cores
 // bound it.
 //
-// Design. The three products run on tensor cores (WMMA bf16, float32
-// accumulators, distilled.cuh); features, hidden layers and the readout stay
-// in shared memory, and the weights stream from L2 through shared memory in
-// double-buffered 64 x 64 chunks, each used for all 64 aircraft of the
-// block. The elementwise nlplant is one thread per aircraft, in registers.
-// State and control rows are staged through shared memory so that the
-// [n, 12] / [n, 5] reads and the [n, 12] write are coalesced.
+// Design. The three products run on tensor cores (mma.sync m16n8k16 bf16,
+// float32 accumulators in registers, distilled.cuh); features and hidden
+// layers stay in shared memory, and the weights stream from L2 through
+// shared memory in 3-stage cp.async chunks, each used for all 64 aircraft
+// of the block. The elementwise nlplant is one thread per aircraft, in
+// registers. State and control rows are staged through shared memory so
+// that the [n, 12] / [n, 5] reads and the [n, 12] write are coalesced.
 #include <cuda_runtime.h>
 
 #include "distilled.cuh"
@@ -27,10 +27,9 @@ using namespace np_dist;
 
 __global__ void __launch_bounds__(NP_THREADS, 2)
 nlplant_distilled_kernel(const float* __restrict__ s, const float* __restrict__ u,
-                         float* __restrict__ xdot, int n, Weights w, int H,
-                         bool hidden_bf16) {
+                         float* __restrict__ xdot, int n, Weights w, bool hidden_bf16) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const Smem sm = smem_layout(smem_raw, H);
+  const Smem sm = smem_layout(smem_raw);
   const int t = threadIdx.x;
   const int i0 = blockIdx.x * NP_M;
   const int nv = min(NP_M, n - i0);  // valid aircraft in this block
@@ -56,7 +55,7 @@ nlplant_distilled_kernel(const float* __restrict__ s, const float* __restrict__ 
   __syncthreads();
   build_features(sm);
   __syncthreads();
-  trunk(sm, w, H, hidden_bf16);
+  trunk(sm, w, hidden_bf16);
 
   if (t < nv) {
     float c[N_COEF], xd[12];
@@ -80,14 +79,15 @@ int np_nlplant_distilled(const float* s, const float* u, float* xdot, int n,
                          const float* b2, const bf16* W3, const float* b3,
                          const float* mu, const float* sd, int H, int hidden_bf16,
                          void* stream) {
-  const size_t smem = smem_bytes(H);
+  if (H != NP_H) return (int)cudaErrorInvalidValue;
+  const size_t smem = SMEM_BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       nlplant_distilled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const Weights w{W1, b1, W2, b2, W3, b3, mu, sd};
   const int blocks = (n + NP_M - 1) / NP_M;
   nlplant_distilled_kernel<<<blocks, NP_THREADS, smem, (cudaStream_t)stream>>>(
-      s, u, xdot, n, w, H, hidden_bf16 != 0);
+      s, u, xdot, n, w, hidden_bf16 != 0);
   return (int)cudaGetLastError();
 }
 

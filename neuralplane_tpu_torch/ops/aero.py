@@ -30,6 +30,7 @@ IDX = {name: i for i, name in enumerate(AERO_NAMES)}
 K = len(AERO_NAMES)
 OUT = 64      # readout rows (43 real, zero-padded)
 F_PAD = 80    # the kernels' feature width: 68 features padded to 5 x 16
+KERNEL_HIDDEN = 256  # the hidden width the CUDA kernels are built for (csrc/distilled.cuh)
 
 _DISTILLED_NPZ = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -76,9 +77,9 @@ class DistilledAeroWeights:
         same way; W2 and the float32 vectors as they are."""
         if self._packed is None:
             H, F = self.W1.shape
-            if H % 64 or F != distill.N_FEAT:
-                raise ValueError(f"kernels need H % 64 == 0 and F == "
-                                 f"{distill.N_FEAT}; got H={H}, F={F}")
+            if H != KERNEL_HIDDEN or F != distill.N_FEAT:
+                raise ValueError(f"the CUDA kernels are built for H = {KERNEL_HIDDEN}, "
+                                 f"F = {distill.N_FEAT}; got H={H}, F={F}")
             w1p = torch.zeros(H, F_PAD, dtype=torch.bfloat16, device=self.device)
             w1p[:, :F] = self.W1
             w3p = torch.zeros(OUT, H + F_PAD, dtype=torch.bfloat16,

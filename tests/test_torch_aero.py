@@ -93,12 +93,14 @@ def test_load_distilled_matches_jax_loader():
 
 
 def test_packed_layout_pads_with_zeros():
-    w = port_weights(random_weights(2))
+    w = taero.load_distilled(device="cpu")
     w1p, _, _, _, w3p, _, _, _ = w.packed()
     H, F = w.W1.shape
     assert w1p.shape == (H, taero.F_PAD) and w3p.shape == (taero.OUT, H + taero.F_PAD)
     assert torch.equal(w1p[:, :F], w.W1) and not w1p[:, F:].any()
     assert torch.equal(w3p[:, :H + F], w.W3) and not w3p[:, H + F:].any()
+    with pytest.raises(ValueError, match="built for H = 256"):
+        port_weights(random_weights(2)).packed()
 
 
 @pytest.mark.parametrize("hidden_bf16", [True, False])
