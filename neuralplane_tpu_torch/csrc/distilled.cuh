@@ -36,7 +36,6 @@ using bf16 = __nv_bfloat16;
 constexpr int NP_M = 64;              // aircraft per block
 constexpr int NP_THREADS = 256;       // 8 warps
 constexpr int NP_H = 256;             // hidden width the kernels are built for
-constexpr int N_FEAT = 68;
 constexpr int F_PAD = 80;             // features padded to 5 x 16 (zeros)
 constexpr int F_LD = F_PAD + 8;       // shared-memory row pitches (+8: no
 constexpr int H_LD = NP_H + 8;        // ldmatrix bank conflicts)
@@ -96,18 +95,30 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// x / d rounded to float32, for d in {35, 18, 15}: the product with the
+// double reciprocal, rounded once to float, is the correctly rounded
+// quotient. (x / d is never a float rounding midpoint: a midpoint m has 25
+// significant bits and the odd part of d would give d m more than 24, so
+// |x / d - m| >= 2^-25 |m| / 35, far above the ~2^-52 relative error of the
+// double product.) This is what distill.featurize computes with a float32
+// division, without the division's instruction sequence.
+__device__ __forceinline__ float div_scale(float x, double inv_d) {
+  return __double2float_rn((double)x * inv_d);
+}
+
 // Feature f of one aircraft (distill.featurize): scaled coordinates, then
 // relu hinges at the knots, each divided by its coordinate's IN_SCALE.
 __device__ __forceinline__ float feature(int f, float a, float b, float e) {
-  if (f == 0) return (a - 35.0f) / 35.0f;
-  if (f == 1) return b / 18.0f;
-  if (f == 2) return e / 15.0f;
+  constexpr double INV_A = 1.0 / 35.0, INV_B = 1.0 / 18.0, INV_E = 1.0 / 15.0;
+  if (f == 0) return div_scale(a - 35.0f, INV_A);
+  if (f == 1) return div_scale(b, INV_B);
+  if (f == 2) return div_scale(e, INV_E);
   f -= 3;
-  if (f < N_ALPHA_K) return fmaxf(a - (-20.0f + 2.5f * (float)(f + 1)), 0.0f) / 35.0f;
+  if (f < N_ALPHA_K) return div_scale(fmaxf(a - (-20.0f + 2.5f * (float)(f + 1)), 0.0f), INV_A);
   f -= N_ALPHA_K;
-  if (f < N_BETA_K) return fmaxf(b - (-30.0f + 3.75f * (float)(f + 1)), 0.0f) / 18.0f;
+  if (f < N_BETA_K) return div_scale(fmaxf(b - (-30.0f + 3.75f * (float)(f + 1)), 0.0f), INV_B);
   f -= N_BETA_K;
-  if (f < N_EL_K) return fmaxf(e - (-25.0f + 6.25f * (float)(f + 1)), 0.0f) / 15.0f;
+  if (f < N_EL_K) return div_scale(fmaxf(e - (-25.0f + 6.25f * (float)(f + 1)), 0.0f), INV_E);
   return 0.0f;  // padding columns 68..79
 }
 

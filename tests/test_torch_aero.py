@@ -5,7 +5,6 @@ The same inputs, made from a seed with numpy, go through the JAX function
 (the Pallas kernel in interpret mode, as tests/test_distilled.py runs it)
 and through the port's plain version.
 """
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
