@@ -15,12 +15,21 @@ Phases, each reported on its own line:
      re-checked with draws on, and the noise and target statistics;
   6. the main path: ControlEnv("heading") at n aircraft, reset, 200 timed
      steps with the config's defaults (in-kernel draws and noise on);
-  7. the portable branch (Euler and RK4) at a smaller n.
+  7. the portable branch (Euler and RK4) at a smaller n;
+  8. the 43-net kernels against their plain versions: the coefficient query
+     in both output layouts, the totals, xdot in both hidden_bf16 modes;
+  9. as 4, 10. as 5, on the 43-net container (the step kernel's grouped mode);
+ 11. task_step against its plain version, three variants;
+ 12. as 6 with aero_backend="pallas": the 43-net main path;
+ 13. as 7 with aero_backend="pallas", and five steps on "stacked";
+ 14. the public query path on the fleet's state: ops.aero.aero_coeffs_t and
+     aero_coeffs, aero_totals, nlplant_f16 and task_step.
 
-The launch counters are set to 0 just before phases 6 and 7 and read just
-after; a kernel of the path that did not launch fails the run. Any mismatch,
-non-finite value or failed check exits non-zero. The second-to-last line is
-the kernel table as JSON, the last line the device record.
+The launch counters are set to 0 just before phases 6, 7, 12, 13 and 14 and
+read just after; a kernel of the path that did not launch fails the run. Any
+mismatch, non-finite value or failed check exits non-zero. The
+second-to-last line is the kernel table as JSON, the last line the device
+record.
 """
 from __future__ import annotations
 
@@ -36,7 +45,11 @@ import torch
 
 # Peaks of one H100 SXM (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# One of the 43 nets is [3 -> 20 -> 20 -> 10 -> 1]: multiply-adds of real
+# work per aircraft, whatever padding a kernel multiplies as well.
+SWEEP_FLOPS = 43 * 2 * (3 * 20 + 20 * 20 + 20 * 10 + 10)
 
 
 def log(msg: str) -> None:
@@ -71,12 +84,23 @@ def trunk_flops(w, n: int) -> float:
     return 2.0 * n * (H * F + H * H + 43 * (H + F))
 
 
+def is_grouped(w) -> bool:
+    from neuralplane_tpu_torch.ops.aero import GroupedAeroWeights
+    return isinstance(w, GroupedAeroWeights)
+
+
+def surrogate_flops(w, n: int) -> float:
+    return float(SWEEP_FLOPS) * n if is_grouped(w) else trunk_flops(w, n)
+
+
 def weight_bytes(w) -> int:
-    return sum(t.numel() * t.element_size() for t in w.leaves())
+    """Bytes of the weights as the kernels read them."""
+    tensors = w.packed() if is_grouped(w) else w.leaves()
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -160,7 +184,7 @@ def phase_nlplant(w, n, g, dev, table):
     table["nlplant_distilled"] = dict(
         name="nlplant_distilled", route="cuda",
         source="neuralplane_tpu_torch/csrc/nlplant_distilled.cu",
-        replaces="neuralplane_tpu/ops/aero_pallas.py:599",
+        replaces="neuralplane_tpu/ops/aero_pallas.py:606",
         max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=None)
 
@@ -180,11 +204,16 @@ def step_inputs(n, g, dev, cfg, variant):
             [t.contiguous() for t in tg], sc)
 
 
-def compare_step(tag, got, want, n):
-    """Compare two env_step result tuples; returns the largest abs error."""
-    names = ("sf", "uf", "obs", "done", "bad", "reward", "counts")
+STEP_OUTPUTS = ("sf", "uf", "obs", "done", "bad", "reward", "counts")
+TASK_OUTPUTS = ("obs", "done", "bad", "reward", "counts")
+
+
+def compare_step(tag, got, want, n, names=STEP_OUTPUTS):
+    """Compare two env_step (or task_step) result tuples; returns the
+    largest abs error."""
     # the reward carries +-200 for the flags: compare it where they agree
-    agree = (got[3] == want[3]) & (got[4] == want[4])
+    i_done, i_bad = names.index("done"), names.index("bad")
+    agree = (got[i_done] == want[i_done]) & (got[i_bad] == want[i_bad])
     errs = []
     for i, nm in enumerate(names):
         g, w = got[i], want[i]
@@ -202,12 +231,14 @@ def compare_step(tag, got, want, n):
             gg = g.T if nm in ("sf", "uf") else g[agree] if nm == "reward" else g
             ww = w.T if nm in ("sf", "uf") else w[agree] if nm == "reward" else w
             errs.append(compare_cols(f"{tag} {nm}", gg, ww))
-    for i in range(7, len(got)):
-        errs.append(compare_cols(f"{tag} target {i - 7}", got[i], want[i]))
+    for i in range(len(names), len(got)):
+        errs.append(compare_cols(f"{tag} target {i - len(names)}", got[i], want[i]))
     return max(errs)
 
 
-def phase_step(w, n, g, dev, table):
+def phase_step(w, n, g, dev, table, key="env_step", phase=4):
+    """The step kernel in the mode that `w` selects (distilled trunk or the
+    43 nets) against env_step_plain."""
     from neuralplane_tpu_torch.ops import step_cuda
     STATS.clear()
     from neuralplane_tpu_torch.utils.config import load_config
@@ -221,11 +252,11 @@ def phase_step(w, n, g, dev, table):
             got = step_cuda.env_step(*args)
             want = step_cuda.env_step_plain(*args)
             torch.cuda.synchronize()
-            err = max(err, compare_step(f"env_step {variant} step {k}", got, want, n))
+            err = max(err, compare_step(f"{key} {variant} step {k}", got, want, n))
             if variant == "heading" and k == 0:
                 # the f32-hidden mode on the same inputs
                 err = max(err, compare_step(
-                    "env_step heading hidden_bf16=False",
+                    f"{key} heading hidden_bf16=False",
                     step_cuda.env_step(*args, hidden_bf16=False),
                     step_cuda.env_step_plain(*args, hidden_bf16=False), n))
                 timed = dict(
@@ -236,15 +267,15 @@ def phase_step(w, n, g, dev, table):
             mask = want[3] | want[4] | (torch.rand(n, generator=g, device=dev) < 0.05)
             act = torch.rand((n, 4), generator=g, device=dev) * 2.4 - 1.2
             sc = torch.where(mask, 0, sc) + 1
-        log(f"phase 4 env_step {variant} n={n}: 3 chained steps agree "
+        log(f"phase {phase} {key} {variant} n={n}: 3 chained steps agree "
             f"(flags: <= {FLAG_SHARE} of rows may differ) OK")
-    log(f"phase 4 env_step max_abs_err {err:.3e}; |err|/rms median "
+    log(f"phase {phase} {key} max_abs_err {err:.3e}; |err|/rms median "
         f"{STATS['median']:.2e} flip share {STATS['share']:.2e} max "
         f"{STATS['max']:.2e}; heading kernel "
         f"{timed['ms']:.4f} ms, plain {timed['plain_ms']:.4f} ms")
-    table["env_step"] = dict(
-        name="env_step", route="cuda", source="neuralplane_tpu_torch/csrc/env_step.cu",
-        replaces="neuralplane_tpu/ops/step_pallas.py:235", max_abs_err=err,
+    table[key] = dict(
+        name=key, route="cuda", source="neuralplane_tpu_torch/csrc/env_step.cu",
+        replaces="neuralplane_tpu/ops/step_pallas.py:329", max_abs_err=err,
         library_ms=None, **timed)
 
 
@@ -255,7 +286,7 @@ def ks_distance(a: np.ndarray, b: np.ndarray) -> float:
                         - np.searchsorted(b, grid, side="right") / b.size).max())
 
 
-def phase_draws(w, n, g, dev, table):
+def phase_draws(w, n, g, dev, table, key="env_step", phase=5):
     """The kernel's Philox draws: exact host rebuild, then statistics."""
     from neuralplane_tpu_torch.ops import philox, step_cuda
     from neuralplane_tpu_torch.utils.config import load_config
@@ -287,7 +318,7 @@ def phase_draws(w, n, g, dev, table):
         noise = (torch.cat([nb * torch.cos(th), nb * torch.sin(th)])[:22].T * scale)
         want = step_cuda.env_step_plain(variant, cfg, w, sf, uf, act, mask, alt0,
                                         vt0, tr, sc, noise=noise)
-        compare_step(f"env_step {variant} with draws", got[:7], want, n)
+        compare_step(f"{key} {variant} with draws", got[:7], want, n)
         # the same inputs without noise: the difference is the noise itself
         quiet = step_cuda.env_step(variant, cfg, w, sf, uf, act, mask, None, None,
                                    tg, sc, noise_seed=seed, reset_draws=True)
@@ -314,37 +345,47 @@ def phase_draws(w, n, g, dev, table):
         ks = [ks_distance(a.cpu().numpy(), b.cpu().numpy()) for a, b in zip(tk, tp)]
         kept = all(torch.equal(got[7 + i][~mask], tg[i][~mask]) for i in range(3))
         if variant == "heading":   # the main path's mode: draws and noise in the kernel
-            table["env_step"]["ms_with_draws"] = cuda_ms(lambda: step_cuda.env_step(
+            table[key]["ms_with_draws"] = cuda_ms(lambda: step_cuda.env_step(
                 variant, cfg, w, sf, uf, act, mask, None, None, tg, sc, noise_seed=seed,
                 noise_scale=scale, reset_draws=True), 20)
-        log(f"phase 5 draws {variant}: targets = host rebuild, step with draws "
+        log(f"phase {phase} {key} draws {variant}: targets = host rebuild, step with draws "
             f"agrees; noise mean {mu:+.2e} std {sd:.5f} kurtosis {kurt:.3f} "
             f"lag-corr {corr:+.4f}; KS {['%.4f' % d for d in ks]}; "
             f"unflagged targets kept {kept}")
-        if not (noise_ok and all(d < 0.01 for d in ks) and kept):
+        # two samples of n from one distribution differ by ~1.4 / sqrt(n) in
+        # KS distance: the limit is 0.01 from n = 10^5 on, wider for a short run
+        ks_limit = max(0.01, 2.0 * math.sqrt(2.0 / n))
+        if not (noise_ok and all(d < ks_limit for d in ks) and kept):
             raise Mismatch(f"draws {variant}: statistics out of bounds")
 
 
-def phase_main(n, steps, table):
+def phase_main(n, steps, table, backend="distilled", key="env_step", phase=6):
+    """ControlEnv("heading", aero_backend=backend) through measure_env_step,
+    counters zeroed just before and read just after."""
     from neuralplane_tpu_torch.measure import measure_env_step
-    from neuralplane_tpu_torch.ops import aero_cuda, step_cuda
-    aero_cuda.nlplant_distilled.launches = 0
+    from neuralplane_tpu_torch.ops import aero_cuda, aero_grouped_cuda, step_cuda
+    xdot_kernels = (aero_cuda.nlplant_distilled, aero_grouped_cuda.nlplant_grouped)
+    for k in xdot_kernels:
+        k.launches = 0
     step_cuda.env_step.launches = 0
-    r = measure_env_step(n, steps=steps, scenario="heading")
+    r = measure_env_step(n, steps=steps, scenario="heading", aero_backend=backend)
     launches = step_cuda.env_step.launches
     env, st = r["env"], r["state"]
     s = st.model.s
     alt = s[:, 2]
     finite = bool(torch.isfinite(st.model.sf).all() and torch.isfinite(r["out"].obs).all())
     alt_lo, alt_hi = float(alt.min()), float(alt.max())
-    log(f"phase 6 main path ControlEnv(heading) n={r['n']}: {steps} timed steps "
+    log(f"phase {phase} main path ControlEnv(heading, aero_backend={backend}) "
+        f"n={r['n']}: {steps} timed steps "
         f"{r['s_per_step'] * 1e3:.4f} ms/step, {r['agent_steps_per_s']:.4e} "
         f"agent-steps/s, peak memory {r['peak_mem_mb']:.1f} MiB; launches "
-        f"env_step {launches} nlplant_distilled {aero_cuda.nlplant_distilled.launches}; "
+        f"env_step {launches} xdot kernels {sum(k.launches for k in xdot_kernels)}; "
         f"finite {finite}, altitude [{alt_lo:.1f}, {alt_hi:.1f}] ft")
     if launches != steps + 1:
         raise Mismatch(f"env_step launched {launches} times for {steps + 1} steps")
-    profile_steps(env, st)
+    if is_grouped(env.model.weights) != (backend == "pallas"):
+        raise Mismatch(f"aero_backend={backend} built {type(env.model.weights).__name__}")
+    profile_steps(env, st, phase=phase)
     if not finite or alt_lo < 0.0 or alt_hi > 40000.0:
         raise Mismatch("main path state not finite or altitude out of range")
     # bytes of one main-path step: state, control, action, flags, targets,
@@ -353,14 +394,14 @@ def phase_main(n, steps, table):
     n = r["n"]
     nbytes = n * (4 * 12 + 4 * 5 + 4 * 4 + 1 + 4 * 3 + 4) \
         + n * (4 * 12 + 4 * 5 + 4 * 22 + 4 + 2 + 4 * 3) + weight_bytes(w)
-    table["env_step"]["bound_ms"], table["env_step"]["bound_by"] = bound(
-        trunk_flops(w, n), nbytes)
-    table["env_step"]["launches"] = launches
-    table["env_step"]["step_ms"] = r["s_per_step"] * 1e3
+    table[key]["bound_ms"], table[key]["bound_by"] = bound(
+        surrogate_flops(w, n), nbytes)
+    table[key]["launches"] = launches
+    table[key]["step_ms"] = r["s_per_step"] * 1e3
     return r
 
 
-def profile_steps(env, st, steps: int = 20) -> None:
+def profile_steps(env, st, steps: int = 20, phase: int = 6) -> None:
     """Device time by kernel over a short window of main-path steps
     (torch.profiler; after the counted run, so its launches are not counted).
     The idle share is 1 - device time / wall time of the window."""
@@ -379,39 +420,222 @@ def profile_steps(env, st, steps: int = 20) -> None:
     rows = sorted((r for r in rows if r[0] > 0), reverse=True)
     busy = sum(r[0] for r in rows)
     if not rows:
-        log("phase 6 profile: the profiler saw no device time (not measured)")
+        log(f"phase {phase} profile: the profiler saw no device time (not measured)")
         return
     top = "; ".join(f"{k[:40]} {t / steps:.1f} us/step x{c // steps}" for t, k, c in rows[:5])
-    log(f"phase 6 profile ({steps} steps): device busy {busy / steps:.1f} us/step of "
+    log(f"phase {phase} profile ({steps} steps): device busy {busy / steps:.1f} us/step of "
         f"{wall_us / steps:.1f} us/step wall, idle share {1 - busy / wall_us:.3f}; {top}")
 
 
-def phase_portable(n, table):
+def phase_portable(n, table, backend="distilled", key="nlplant_distilled", phase=7):
+    """The portable branch (fused_task_kernel off) on a fused aero backend:
+    one xdot kernel per derivative and no step kernel."""
     from neuralplane_tpu_torch.envs import ControlEnv
-    from neuralplane_tpu_torch.ops import aero_cuda, step_cuda
+    from neuralplane_tpu_torch.ops import aero_cuda, aero_grouped_cuda, step_cuda
+    kernels = {"nlplant_distilled": aero_cuda.nlplant_distilled,
+               "nlplant_grouped": aero_grouped_cuda.nlplant_grouped}
     total = 0
     for solver, per_step in (("euler", 1), ("rk4", 4)):
-        env = ControlEnv(num_envs=n, config="heading", device="cuda")
+        env = ControlEnv(num_envs=n, config="heading", aero_backend=backend,
+                         device="cuda")
         env.config = env.config.replace(fused_task_kernel=False, solver=solver)
         env.model.solver = solver
         st, _ = env.reset(1)
         a = torch.zeros((n, 4), device="cuda")
         a[:, 0] = 1.0
-        aero_cuda.nlplant_distilled.launches = 0
+        for k in kernels.values():
+            k.launches = 0
         step_cuda.env_step.launches = 0
         for _ in range(5):
             st, out = env.step(st, a)
         torch.cuda.synchronize()
-        got = aero_cuda.nlplant_distilled.launches
+        got = kernels[key].launches
+        others = sum(k.launches for k in kernels.values()) - got \
+            + step_cuda.env_step.launches
         finite = bool(torch.isfinite(st.model.s).all() and torch.isfinite(out.obs).all())
-        log(f"phase 7 portable branch {solver} n={n}: 5 steps, launches "
-            f"nlplant_distilled {got} env_step {step_cuda.env_step.launches}, "
-            f"finite {finite}")
-        if got != 5 * per_step or step_cuda.env_step.launches or not finite:
-            raise Mismatch(f"portable {solver}: wrong launches or non-finite state")
+        log(f"phase {phase} portable branch aero_backend={backend} {solver} n={n}: "
+            f"5 steps, launches {key} {got}, other kernels {others}, finite {finite}")
+        if got != 5 * per_step or others or not finite:
+            raise Mismatch(f"portable {backend} {solver}: wrong launches or "
+                           "non-finite state")
         total += got
-    table["nlplant_distilled"]["launches"] = total
-    table["nlplant_distilled"]["launches_path"] = "portable branch (euler + rk4)"
+    table[key]["launches"] = total
+    table[key]["launches_path"] = "portable branch (euler + rk4)"
+
+
+def phase_stacked(n, phase=13):
+    """aero_backend="stacked": the plain float32 query through the env, no
+    hand-written kernel on the path."""
+    from neuralplane_tpu_torch.envs import ControlEnv
+    from neuralplane_tpu_torch.ops import aero_cuda, aero_grouped_cuda, step_cuda
+    kernels = (aero_cuda.nlplant_distilled, aero_grouped_cuda.nlplant_grouped,
+               aero_grouped_cuda.aero_coeffs_grouped, step_cuda.env_step)
+    env = ControlEnv(num_envs=n, config="heading", aero_backend="stacked", device="cuda")
+    st, _ = env.reset(1)
+    a = torch.zeros((n, 4), device="cuda")
+    a[:, 0] = 1.0
+    for k in kernels:
+        k.launches = 0
+    for _ in range(5):
+        st, out = env.step(st, a)
+    torch.cuda.synchronize()
+    launched = sum(k.launches for k in kernels)
+    finite = bool(torch.isfinite(st.model.s).all() and torch.isfinite(out.obs).all())
+    log(f"phase {phase} aero_backend=stacked n={n}: 5 steps, fused {env.fused}, "
+        f"kernel launches {launched}, finite {finite}")
+    if env.fused or launched or not finite:
+        raise Mismatch("stacked backend: fused, launched a kernel or non-finite")
+
+
+def totals_feats(s, u):
+    """The feature-major [10, n] input of aero_totals from states and
+    controls, as nlplant_core derives it."""
+    from neuralplane_tpu_torch.ops.dynamics import R2D
+    return torch.stack([s[:, 7] * R2D, s[:, 8] * R2D, u[:, 1], 1.0 - u[:, 4] / 25.0,
+                        u[:, 2] / 21.5, u[:, 3] / 30.0, s[:, 9], s[:, 10], s[:, 11],
+                        1.0 / (2.0 * s[:, 6].clamp_min(0.01))]).contiguous()
+
+
+def phase_sweep(gw, n, g, dev, table, phase=8):
+    """The three kernels over the 43-net sweep against their plain versions."""
+    from neuralplane_tpu_torch.ops import aero_grouped_cuda as grp
+    from neuralplane_tpu_torch.ops.dynamics import R2D
+    src = "neuralplane_tpu_torch/csrc/aero_grouped.cu"
+    ref = "neuralplane_tpu/ops/aero_pallas.py"
+    s, u = random_states(n, g, dev)
+    a, b, e = (s[:, 7] * R2D).contiguous(), (s[:, 8] * R2D).contiguous(), u[:, 1].contiguous()
+    feats = totals_feats(s, u)
+    wb = weight_bytes(gw)
+    flops = float(SWEEP_FLOPS) * n
+    # name -> (kernel call, plain call, rows-first views, bytes moved, replaces)
+    cases = {
+        "aero_coeffs_grouped[K,n]": (
+            lambda: grp.aero_coeffs_grouped(gw, a, b, e),
+            lambda: grp.aero_coeffs_grouped_plain(gw, a, b, e),
+            lambda t: t.T, n * 4 * (3 + 43) + wb, f"{ref}:229"),
+        "aero_coeffs_grouped[n,K]": (
+            lambda: grp.aero_coeffs_grouped(gw, a, b, e, row_major=True),
+            lambda: grp.aero_coeffs_grouped_plain(gw, a, b, e, row_major=True),
+            lambda t: t, n * 4 * (3 + 43) + wb, f"{ref}:181"),
+        "aero_totals": (
+            lambda: grp.aero_totals(gw, feats),
+            lambda: grp.aero_totals_plain(gw, feats),
+            lambda t: t.T, n * 4 * (10 + 6) + wb, f"{ref}:310"),
+        "nlplant_grouped": (
+            lambda: grp.nlplant_grouped(gw, s, u),
+            lambda: grp.nlplant_grouped_plain(gw, s, u),
+            lambda t: t, n * 4 * (12 + 5 + 12) + wb, f"{ref}:428"),
+    }
+    for name, (kernel, plain, rows, nbytes, replaces) in cases.items():
+        STATS.clear()
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        err = compare_cols(name, rows(got), rows(want))
+        if name == "nlplant_grouped":   # the f32-hidden mode on the same inputs
+            err = max(err, compare_cols(
+                "nlplant_grouped hidden_bf16=False",
+                grp.nlplant_grouped(gw, s, u, hidden_bf16=False),
+                grp.nlplant_grouped_plain(gw, s, u, hidden_bf16=False)))
+        del got, want
+        ms, plain_ms = cuda_ms(kernel, 20), cuda_ms(plain, 2)
+        b_ms, b_by = bound(flops, nbytes)
+        log(f"phase {phase} {name} n={n}: max_abs_err {err:.3e}; |err|/rms median "
+            f"{STATS['median']:.2e} flip share {STATS['share']:.2e} max "
+            f"{STATS['max']:.2e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}) OK")
+        table[name] = dict(name=name, route="cuda", source=src, replaces=replaces,
+                           max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                           bound_by=b_by, library_ms=None)
+    table["nlplant_grouped"]["ms_f32_hidden"] = cuda_ms(
+        lambda: grp.nlplant_grouped(gw, s, u, hidden_bf16=False), 20)
+
+
+# float32 operations of the task layer per aircraft, counted from
+# ops/task.py:task_rows with a transcendental as one: the observation (~60),
+# the overload check (~45), the other checks and the reward (~45).
+TASK_FLOPS = 150
+
+
+def phase_task(gw, n, g, dev, table, phase=11):
+    """task_step against its plain version, fed the xdot kernel's output."""
+    from neuralplane_tpu_torch.ops import aero_grouped_cuda as grp
+    from neuralplane_tpu_torch.ops import task_cuda
+    from neuralplane_tpu_torch.utils.config import load_config
+    STATS.clear()
+    err = 0.0
+    timed = {}
+    for variant in ("heading", "control", "tracking"):
+        cfg = load_config(variant)
+        sf, uf, _, _, _, _, tg, sc = step_inputs(n, g, dev, cfg, variant)
+        s, u = sf.T.contiguous(), uf.T.contiguous()
+        xdot = grp.nlplant_grouped(gw, s, u)
+        args = (variant, cfg, s, u, xdot, tuple(tg), sc)
+        got, want = task_cuda.task_step(*args), task_cuda.task_step_plain(*args)
+        torch.cuda.synchronize()
+        err = max(err, compare_step(f"task_step {variant}", got, want, n, TASK_OUTPUTS))
+        if variant == "heading":
+            timed = dict(ms=cuda_ms(lambda: task_cuda.task_step(*args), 20),
+                         plain_ms=cuda_ms(lambda: task_cuda.task_step_plain(*args), 3))
+    nbytes = n * (4 * (12 + 5 + 12 + 3 + 1) + 4 * 22 + 4 + 2)
+    b_ms, b_by = bound(float(TASK_FLOPS) * n, nbytes, PEAK_F32_FLOPS)
+    log(f"phase {phase} task_step n={n}: three variants agree (flags: <= {FLAG_SHARE} "
+        f"of rows may differ); max_abs_err {err:.3e}; |err|/rms median "
+        f"{STATS['median']:.2e} max {STATS['max']:.2e}; heading kernel "
+        f"{timed['ms']:.4f} ms, plain {timed['plain_ms']:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}) OK")
+    table["task_step"] = dict(
+        name="task_step", route="cuda", source="neuralplane_tpu_torch/csrc/task_step.cu",
+        replaces="neuralplane_tpu/ops/task_pallas.py:257", max_abs_err=err,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, **timed)
+
+
+def phase_public(r, table, phase=14):
+    """The public query functions on the state the 43-net main path ended
+    in: what a user calls to look at the fleet's aerodynamics and task
+    status outside a step. Counters zeroed just before, read after each."""
+    from neuralplane_tpu_torch.models.f16 import from_fm
+    from neuralplane_tpu_torch.ops import aero, aero_grouped_cuda as grp, task_cuda
+    from neuralplane_tpu_torch.ops.dynamics import R2D, nlplant_f16
+    env, st = r["env"], r["state"]
+    gw, n = env.model.weights, env.n
+    m = from_fm(st.model)
+    s, u = m.s, m.u
+    a, b, e = (s[:, 7] * R2D).contiguous(), (s[:, 8] * R2D).contiguous(), u[:, 1].contiguous()
+    kernels = (grp.aero_coeffs_grouped, grp.aero_totals, grp.nlplant_grouped,
+               task_cuda.task_step)
+    for k in kernels:
+        k.launches = 0
+    c_t = aero.aero_coeffs_t(gw, a, b, e)                        # [K, n]
+    n_t = grp.aero_coeffs_grouped.launches
+    c = aero.aero_coeffs(gw, a, b, e)                            # [n, K]
+    n_rows = grp.aero_coeffs_grouped.launches - n_t
+    totals = grp.aero_totals(gw, totals_feats(s, u))
+    xdot = nlplant_f16(gw, s, u)
+    obs, done, bad, reward, counts = task_cuda.task_step(
+        env.task.kernel_variant, env.config, s, u, xdot,
+        env.task.kernel_targets(st.task), st.step_count)
+    torch.cuda.synchronize()
+    launches = {"aero_coeffs_grouped[K,n]": n_t, "aero_coeffs_grouped[n,K]": n_rows,
+                "aero_totals": grp.aero_totals.launches,
+                "task_step": task_cuda.task_step.launches}
+    shapes = (c_t.shape == (43, n) and c.shape == (n, 43) and totals.shape == (6, n)
+              and xdot.shape == (n, 12) and obs.shape == (n, 22)
+              and done.shape == bad.shape == reward.shape == (n,))
+    finite = all(bool(torch.isfinite(t).all()) for t in (c_t, totals, xdot, obs, reward))
+    same = torch.equal(c, c_t.T)
+    # every bad row raised a condition, every done row the last one
+    flags = (int(bad.sum()) <= int(counts.sum()) and int(done.sum()) <= int(counts[5])
+             and int(counts.max()) <= n)
+    log(f"phase {phase} public queries n={n}: launches {launches} nlplant_grouped "
+        f"{grp.nlplant_grouped.launches}; shapes {shapes}, finite {finite}, "
+        f"[n,K] == [K,n].T {same}, counts {counts.tolist()} bad {int(bad.sum())} "
+        f"done {int(done.sum())}")
+    if not (shapes and finite and same and flags) or grp.nlplant_grouped.launches != 1:
+        raise Mismatch("public queries: wrong shape, non-finite, layouts disagree "
+                       "or counts inconsistent")
+    for name, k in launches.items():
+        table[name]["launches"] = k
+        table[name]["launches_path"] = "public query functions on the main path's state"
 
 
 def main(argv=None) -> int:
@@ -425,7 +649,7 @@ def main(argv=None) -> int:
               "an NVIDIA GPU", file=sys.stderr)
         return 2
     from neuralplane_tpu_torch.ops import cuda_build
-    from neuralplane_tpu_torch.ops.aero import load_distilled
+    from neuralplane_tpu_torch.ops.aero import load_distilled, select_aero_weights
 
     dev = torch.device("cuda")
     card = card_line()
@@ -449,8 +673,25 @@ def main(argv=None) -> int:
     phase_main(args.n, args.steps, table)
     phase_portable(args.portable_n, table)
 
+    gw = select_aero_weights("pallas", device=dev)
+    phase_sweep(gw, args.n, g, dev, table)
+    phase_step(gw, args.n, g, dev, table, key="env_step_grouped", phase=9)
+    phase_draws(gw, args.n, g, dev, table, key="env_step_grouped", phase=10)
+    phase_task(gw, args.n, g, dev, table)
+    r = phase_main(args.n, args.steps, table, backend="pallas", key="env_step_grouped",
+                   phase=12)
+    phase_portable(args.portable_n, table, backend="pallas", key="nlplant_grouped",
+                   phase=13)
+    phase_stacked(args.portable_n)
+    phase_public(r, table)
+
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
     for k in table.values():
-        if k.get("launches", 0) < 1:
+        missing = [key for key in keys if key not in k]
+        if missing:
+            raise Mismatch(f"{k['name']}: the kernel table lacks {missing}")
+        if k["launches"] < 1:
             raise Mismatch(f"{k['name']} was not launched on its path")
     log(card)
     print(json.dumps({"kernels": list(table.values())}))

@@ -1,9 +1,10 @@
-// env_step: the whole F-16 control-task env step, one thread block per 64
-// aircraft.
+// env_step: the whole F-16 control-task env step, in two kernels that
+// share everything but the surrogate: the distilled trunk (one thread block
+// per 64 aircraft) and the 43-net ensemble (one warp per 32 aircraft).
 //
 // Replaces the TPU kernel neuralplane_tpu/ops/step_pallas.py:env_step_pallas
-// (_step_kernel) in its distilled mode; its task layer is the device twin of
-// neuralplane_tpu/ops/task_pallas.py:task_rows.
+// (_step_kernel) in its distilled and its grouped mode; its task layer is
+// the device twin of neuralplane_tpu/ops/task_pallas.py:task_rows.
 //
 // Per aircraft: optional Philox draws (init uniforms + target resample),
 // masked reset select, actuator lag, distilled surrogate (tensor cores),
@@ -29,9 +30,19 @@
 // memory (no host sync per step), counter (aircraft, draw block); the
 // sensor noise (6 blocks and 12 Box-Muller pairs per aircraft) is spread
 // over all threads of the block, not only the 64 that own an aircraft.
+//
+// Grouped mode. The 43-net sweep (grouped.cuh) takes the trunk's place:
+// 57,620 FLOP per aircraft (0.058 ms at n = 10^6) against the same ~0.3 KB
+// (~0.08 ms), so the bytes bound it. Every lane owns one aircraft from the
+// reset select to the task layer and draws its own noise; the warp's
+// scratch stages the [32, 22] observation rows. Shared memory: 201,584
+// bytes a block (113,520 of weights, 5,504 of scratch for each of 16
+// warps), one persistent block per SM, against the distilled mode's
+// 107 KB and two blocks.
 #include <cuda_runtime.h>
 
 #include "distilled.cuh"
+#include "grouped.cuh"
 #include "nlplant.cuh"
 #include "philox.cuh"
 #include "task.cuh"
@@ -105,6 +116,119 @@ __device__ __forceinline__ void resample_targets(const StepParams& p, float d2, 
   }
 }
 
+// Steps 0-2 for the valid aircraft i: optional Philox draws (init uniforms
+// and target resample), masked reset select, actuator lag.
+__device__ __forceinline__ void step_inputs(const StepIO& io, const StepParams& p, int i,
+                                            float s[12], float u[5], float tr[3], int& sc) {
+  const int n = p.n;
+  const bool m = io.mask[i];
+  float alt0, vt0;
+  if (p.reset_draws) {
+    // 0. init draws and target resample (blocks 0 and 1 of the counter)
+    const uint2 key = make_uint2((uint32_t)io.seed[0], (uint32_t)io.seed[1]);
+    const float4 d0 = np_rng::uniform4(key, (uint32_t)i, 0u);
+    const float4 d1 = np_rng::uniform4(key, (uint32_t)i, 1u);
+    alt0 = p.min_alt + d0.x * p.alt_span;
+    vt0 = p.min_vt + d0.y * p.vt_span;
+    float tn[3];
+    resample_targets(p, d0.z, d0.w, d1.x, alt0, vt0, tn);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      tr[k] = m ? tn[k] : io.tg[k][i];
+      io.tg_out[k][i] = tr[k];
+    }
+  } else {
+    alt0 = io.alt_init[i];
+    vt0 = io.vt_init[i];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) tr[k] = io.tg[k][i];
+  }
+  // 1. masked reset select
+#pragma unroll
+  for (int j = 0; j < 12; ++j) {
+    const float init = j == 2 ? alt0 : (j == 6 ? vt0 : 0.0f);
+    s[j] = m ? init : io.sf[(size_t)j * n + i];
+  }
+  // 2. actuator lag on the post-reset control; lef pinned to 0
+  const float4 a = reinterpret_cast<const float4*>(io.act)[i];
+  const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float prev = m ? (j == 0 ? p.init_T : 0.0f) : io.uf[(size_t)j * n + i];
+    const float scale = j == 0 ? THRUST_SCALE : SURFACE_SCALE;
+    u[j] = 0.9f * prev + 0.1f * fminf(fmaxf(av[j], -1.0f), 1.0f) * scale;
+  }
+  u[4] = 0.0f;
+  sc = io.sc[i];
+}
+
+// A row past n: zeros, so that the surrogate runs on finite values.
+__device__ __forceinline__ void zero_inputs(float s[12], float u[5], float tr[3]) {
+#pragma unroll
+  for (int j = 0; j < 12; ++j) s[j] = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 5; ++j) u[j] = 0.0f;
+  tr[0] = tr[1] = tr[2] = 0.0f;
+}
+
+// Sensor noise, item q in {0, 1, 2} of aircraft i: counter blocks 2 + q
+// (radii) and 5 + q (angles) give the Box-Muller pairs of observation
+// slots k and 12 + k, k = 4q..4q+3, written to dst[22].
+__device__ __forceinline__ void noise_item(uint2 key, uint32_t i, int q, float noise_scale,
+                                           float* dst) {
+  const float4 ur = np_rng::uniform4(key, i, 2u + q);
+  const float4 ut = np_rng::uniform4(key, i, 5u + q);
+  const float rad_u[4] = {ur.x, ur.y, ur.z, ur.w}, ang_u[4] = {ut.x, ut.y, ut.z, ut.w};
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int k = 4 * q + c;
+    const float rad = sqrtf(-2.0f * logf(fmaxf(rad_u[c], 1e-7f)));
+    const float th = (float)(2.0 * PI_D) * ang_u[c];
+    dst[k] = rad * cosf(th) * noise_scale;
+    if (12 + k < 22) dst[12 + k] = rad * sinf(th) * noise_scale;
+  }
+}
+
+// Steps 3b-5 for the valid aircraft i, from its raw coefficients: nlplant,
+// Euler, the task layer, and every output but the observation, which comes
+// back noiseless in obs[22] with the six conditions.
+__device__ __forceinline__ void step_outputs(const StepIO& io, const StepParams& p, int i,
+                                             const float s[12], const float u[5],
+                                             const float tr[3], int sc,
+                                             const float c[np_f16::N_COEF], float obs[22],
+                                             bool conds[6]) {
+  const int n = p.n;
+  float xd[12], sn[12];
+  np_f16::nlplant_core(s, u, c, xd);
+  // 4. Euler
+#pragma unroll
+  for (int j = 0; j < 12; ++j) sn[j] = s[j] + p.dt * xd[j];
+  // 5. task layer at the post-step state with the step-start xdot
+  const np_task::TaskConsts tc{p.airspeed, p.acc_limit, p.alt_limit, p.max_mach,
+                               p.min_mach, p.min_alpha, p.max_alpha, p.min_beta,
+                               p.max_beta, p.max_check, p.min_check};
+  bool done, bad;
+  float rew;
+  np_task::task_rows(p.variant, tc, sn, u, xd, tr, sc, obs, conds, done, bad, rew);
+#pragma unroll
+  for (int j = 0; j < 12; ++j) io.sf_out[(size_t)j * n + i] = sn[j];
+#pragma unroll
+  for (int j = 0; j < 5; ++j) io.uf_out[(size_t)j * n + i] = u[j];
+  io.done[i] = done;
+  io.bad[i] = bad;
+  io.reward[i] = rew;
+}
+
+// Whole warp: per-condition counts, one atomicAdd per warp and condition.
+__device__ __forceinline__ void add_counts(int* counts, const bool conds[6]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    const unsigned bits = __ballot_sync(0xffffffffu, conds[k]);
+    if (lane == 0 && bits) atomicAdd(counts + k, __popc(bits));
+  }
+}
+
 __global__ void __launch_bounds__(NP_THREADS, 2)
 env_step_kernel(StepIO io, Weights w, StepParams p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -118,56 +242,10 @@ env_step_kernel(StepIO io, Weights w, StepParams p) {
   const bool valid = t < nv;
 
   float s[12], u[5], tr[3];
-  bool m = false;
   int sc = 0;
   if (own) {
-    if (valid) {
-      m = io.mask[i];
-      float alt0, vt0;
-      if (p.reset_draws) {
-        // 0. init draws and target resample (blocks 0 and 1 of the counter)
-        const uint2 key = make_uint2((uint32_t)io.seed[0], (uint32_t)io.seed[1]);
-        const float4 d0 = np_rng::uniform4(key, (uint32_t)i, 0u);
-        const float4 d1 = np_rng::uniform4(key, (uint32_t)i, 1u);
-        alt0 = p.min_alt + d0.x * p.alt_span;
-        vt0 = p.min_vt + d0.y * p.vt_span;
-        float tn[3];
-        resample_targets(p, d0.z, d0.w, d1.x, alt0, vt0, tn);
-#pragma unroll
-        for (int k = 0; k < 3; ++k) {
-          tr[k] = m ? tn[k] : io.tg[k][i];
-          io.tg_out[k][i] = tr[k];
-        }
-      } else {
-        alt0 = io.alt_init[i];
-        vt0 = io.vt_init[i];
-#pragma unroll
-        for (int k = 0; k < 3; ++k) tr[k] = io.tg[k][i];
-      }
-      // 1. masked reset select
-#pragma unroll
-      for (int j = 0; j < 12; ++j) {
-        const float init = j == 2 ? alt0 : (j == 6 ? vt0 : 0.0f);
-        s[j] = m ? init : io.sf[(size_t)j * n + i];
-      }
-      // 2. actuator lag on the post-reset control; lef pinned to 0
-      const float4 a = reinterpret_cast<const float4*>(io.act)[i];
-      const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float prev = m ? (j == 0 ? p.init_T : 0.0f) : io.uf[(size_t)j * n + i];
-        const float scale = j == 0 ? THRUST_SCALE : SURFACE_SCALE;
-        u[j] = 0.9f * prev + 0.1f * fminf(fmaxf(av[j], -1.0f), 1.0f) * scale;
-      }
-      u[4] = 0.0f;
-      sc = io.sc[i];
-    } else {
-#pragma unroll
-      for (int j = 0; j < 12; ++j) s[j] = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 5; ++j) u[j] = 0.0f;
-      tr[0] = tr[1] = tr[2] = 0.0f;
-    }
+    if (valid) step_inputs(io, p, i, s, u, tr, sc);
+    else zero_inputs(s, u, tr);
     sm.abe[3 * t + 0] = s[7] * np_f16::R2D;
     sm.abe[3 * t + 1] = s[8] * np_f16::R2D;
     sm.abe[3 * t + 2] = u[1];
@@ -179,23 +257,11 @@ env_step_kernel(StepIO io, Weights w, StepParams p) {
   trunk(sm, w, p.hidden_bf16 != 0);
 
   if (p.noise_scale > 0.0f) {
-    // sensor noise, spread over all threads: item (aircraft r, q) draws
-    // counter blocks 2 + q (radii) and 5 + q (angles) and writes the
-    // Box-Muller pairs of observation slots k and 12 + k, k = 4q..4q+3
+    // sensor noise, spread over all threads: one item per (aircraft, q)
     const uint2 key = make_uint2((uint32_t)io.seed[0], (uint32_t)io.seed[1]);
     for (int item = t; item < nv * 3; item += NP_THREADS) {
       const int r = item / 3, q = item - 3 * r;
-      const float4 ur = np_rng::uniform4(key, (uint32_t)(i0 + r), 2u + q);
-      const float4 ut = np_rng::uniform4(key, (uint32_t)(i0 + r), 5u + q);
-      const float rad_u[4] = {ur.x, ur.y, ur.z, ur.w}, ang_u[4] = {ut.x, ut.y, ut.z, ut.w};
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int k = 4 * q + c;
-        const float rad = sqrtf(-2.0f * logf(fmaxf(rad_u[c], 1e-7f)));
-        const float th = (float)(2.0 * PI_D) * ang_u[c];
-        sm.io[r * 22 + k] = rad * cosf(th) * p.noise_scale;
-        if (12 + k < 22) sm.io[r * 22 + 12 + k] = rad * sinf(th) * p.noise_scale;
-      }
+      noise_item(key, (uint32_t)(i0 + r), q, p.noise_scale, sm.io + r * 22);
     }
     __syncthreads();
   }
@@ -203,49 +269,92 @@ env_step_kernel(StepIO io, Weights w, StepParams p) {
   if (own) {  // warp-uniform: warps 0 and 1
     bool conds[6] = {false, false, false, false, false, false};
     if (valid) {
-      float c[N_COEF], xd[12], sn[12], obs[22];
+      float c[N_COEF], obs[22];
       coefficients(sm, w, t, c);
-      np_f16::nlplant_core(s, u, c, xd);
-      // 4. Euler
-#pragma unroll
-      for (int j = 0; j < 12; ++j) sn[j] = s[j] + p.dt * xd[j];
-      // 5. task layer at the post-step state with the step-start xdot
-      const np_task::TaskConsts tc{p.airspeed, p.acc_limit, p.alt_limit, p.max_mach,
-                                   p.min_mach, p.min_alpha, p.max_alpha, p.min_beta,
-                                   p.max_beta, p.max_check, p.min_check};
-      bool done, bad;
-      float rew;
-      np_task::task_rows(p.variant, tc, sn, u, xd, tr, sc, obs, conds, done, bad, rew);
+      step_outputs(io, p, i, s, u, tr, sc, c, obs, conds);
       if (p.noise_scale > 0.0f) {
 #pragma unroll
         for (int j = 0; j < 22; ++j) obs[j] = obs[j] + sm.io[t * 22 + j];
       }
 #pragma unroll
-      for (int j = 0; j < 12; ++j) io.sf_out[(size_t)j * n + i] = sn[j];
-#pragma unroll
-      for (int j = 0; j < 5; ++j) io.uf_out[(size_t)j * n + i] = u[j];
-      io.done[i] = done;
-      io.bad[i] = bad;
-      io.reward[i] = rew;
-#pragma unroll
       for (int j = 0; j < 22; ++j) sm.io[t * 22 + j] = obs[j];
     }
-    // per-condition counts over valid rows
-    const int lane = t & 31;
-#pragma unroll
-    for (int k = 0; k < 6; ++k) {
-      const unsigned bits = __ballot_sync(0xffffffffu, conds[k]);
-      if (lane == 0 && bits) atomicAdd(io.counts + k, __popc(bits));
-    }
+    add_counts(io.counts, conds);
   }
   __syncthreads();
   for (int e = t; e < nv * 22; e += NP_THREADS) io.obs[(size_t)i0 * 22 + e] = sm.io[e];
+}
+
+// The grouped mode: the same step on the 43-net ensemble. Every lane owns
+// the aircraft np_grp::own_row() of its warp's tile.
+template <bool HB>
+__global__ void __launch_bounds__(np_grp::GRP_THREADS, 1)
+env_step_grouped_kernel(StepIO io, const uint2* __restrict__ frags,
+                        const float* __restrict__ vec, StepParams p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const np_grp::Smem sm = np_grp::load_weights(smem_raw, frags, vec);
+  const int lane = threadIdx.x & 31, row = np_grp::own_row();
+  const int n = p.n;
+  const int tiles = (n + np_grp::TILE - 1) / np_grp::TILE;
+  for (int tile = blockIdx.x * np_grp::GRP_WARPS + (threadIdx.x >> 5); tile < tiles;
+       tile += gridDim.x * np_grp::GRP_WARPS) {
+    const int base = tile * np_grp::TILE, nv = min(np_grp::TILE, n - base);
+    const int i = base + row;
+    const bool valid = row < nv;
+    float s[12], u[5], tr[3];
+    int sc = 0;
+    if (valid) step_inputs(io, p, i, s, u, tr, sc);
+    else zero_inputs(s, u, tr);
+    // 3. surrogate at (post-reset s, lagged u)
+    np_grp::sweep<HB>(sm, s[7] * np_f16::R2D, s[8] * np_f16::R2D, u[1]);
+    bool conds[6] = {false, false, false, false, false, false};
+    float obs[22];
+    if (valid) {
+      float c[np_grp::N_NETS];
+      np_grp::coefficients(sm, c);
+      step_outputs(io, p, i, s, u, tr, sc, c, obs, conds);
+      if (p.noise_scale > 0.0f) {
+        const uint2 key = make_uint2((uint32_t)io.seed[0], (uint32_t)io.seed[1]);
+        float nz[22];
+#pragma unroll
+        for (int q = 0; q < 3; ++q) noise_item(key, (uint32_t)i, q, p.noise_scale, nz);
+#pragma unroll
+        for (int j = 0; j < 22; ++j) obs[j] = obs[j] + nz[j];
+      }
+    }
+    add_counts(io.counts, conds);
+    __syncwarp();  // every lane has read its coefficients
+    if (valid) {
+#pragma unroll
+      for (int j = 0; j < 22; ++j) sm.cw[row * 22 + j] = obs[j];
+    }
+    __syncwarp();
+    for (int e = lane; e < nv * 22; e += 32) io.obs[(size_t)base * 22 + e] = sm.cw[e];
+    __syncwarp();
+  }
 }
 
 extern "C" {
 
 const char* np_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+static StepIO step_io(const float* sf, const float* uf, const float* act, const bool* mask,
+                      const float* alt_init, const float* vt_init, const float* tg0,
+                      const float* tg1, const float* tg2, const int* sc, const int* seed,
+                      float* sf_out, float* uf_out, float* obs, bool* done, bool* bad,
+                      float* reward, int* counts, float* tg0_out, float* tg1_out,
+                      float* tg2_out) {
+  StepIO io;
+  io.sf = sf; io.uf = uf; io.act = act; io.mask = mask;
+  io.alt_init = alt_init; io.vt_init = vt_init;
+  io.tg[0] = tg0; io.tg[1] = tg1; io.tg[2] = tg2;
+  io.sc = sc; io.seed = seed;
+  io.sf_out = sf_out; io.uf_out = uf_out; io.obs = obs;
+  io.done = done; io.bad = bad; io.reward = reward; io.counts = counts;
+  io.tg_out[0] = tg0_out; io.tg_out[1] = tg1_out; io.tg_out[2] = tg2_out;
+  return io;
 }
 
 int np_env_step(const float* sf, const float* uf, const float* act, const bool* mask,
@@ -261,17 +370,40 @@ int np_env_step(const float* sf, const float* uf, const float* act, const bool* 
   cudaError_t err = cudaFuncSetAttribute(
       env_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  StepIO io;
-  io.sf = sf; io.uf = uf; io.act = act; io.mask = mask;
-  io.alt_init = alt_init; io.vt_init = vt_init;
-  io.tg[0] = tg0; io.tg[1] = tg1; io.tg[2] = tg2;
-  io.sc = sc; io.seed = seed;
-  io.sf_out = sf_out; io.uf_out = uf_out; io.obs = obs;
-  io.done = done; io.bad = bad; io.reward = reward; io.counts = counts;
-  io.tg_out[0] = tg0_out; io.tg_out[1] = tg1_out; io.tg_out[2] = tg2_out;
+  const StepIO io = step_io(sf, uf, act, mask, alt_init, vt_init, tg0, tg1, tg2, sc, seed,
+                            sf_out, uf_out, obs, done, bad, reward, counts, tg0_out,
+                            tg1_out, tg2_out);
   const Weights w{W1, b1, W2, b2, W3, b3, mu, sd};
   const int blocks = (p.n + NP_M - 1) / NP_M;
   env_step_kernel<<<blocks, NP_THREADS, smem, (cudaStream_t)stream>>>(io, w, p);
+  return (int)cudaGetLastError();
+}
+
+// The grouped mode: `frags` and `vec` are GroupedAeroWeights.packed().
+int np_env_step_grouped(const float* sf, const float* uf, const float* act,
+                        const bool* mask, const float* alt_init, const float* vt_init,
+                        const float* tg0, const float* tg1, const float* tg2,
+                        const int* sc, const int* seed, const uint2* frags,
+                        const float* vec, StepParams p, float* sf_out, float* uf_out,
+                        float* obs, bool* done, bool* bad, float* reward, int* counts,
+                        float* tg0_out, float* tg1_out, float* tg2_out, void* stream) {
+  const size_t smem = np_grp::SMEM_BYTES;
+  cudaError_t err =
+      p.hidden_bf16
+          ? cudaFuncSetAttribute(env_step_grouped_kernel<true>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)
+          : cudaFuncSetAttribute(env_step_grouped_kernel<false>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const StepIO io = step_io(sf, uf, act, mask, alt_init, vt_init, tg0, tg1, tg2, sc, seed,
+                            sf_out, uf_out, obs, done, bad, reward, counts, tg0_out,
+                            tg1_out, tg2_out);
+  const int blocks = np_grp::grid_blocks(p.n);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (p.hidden_bf16)
+    env_step_grouped_kernel<true><<<blocks, np_grp::GRP_THREADS, smem, st>>>(io, frags, vec, p);
+  else
+    env_step_grouped_kernel<false><<<blocks, np_grp::GRP_THREADS, smem, st>>>(io, frags, vec, p);
   return (int)cudaGetLastError();
 }
 

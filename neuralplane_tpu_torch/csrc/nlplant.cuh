@@ -30,30 +30,13 @@ enum Coef {
   N_COEF
 };
 
-// s[12] state, u[5] control (T, el, ail, rud, lef), c[43] raw coefficients
-// -> xd[12] state derivative.
-__device__ __forceinline__ void nlplant_core(const float s[12], const float u[5],
-                                             const float c[N_COEF], float xd[12]) {
-  const float alt = s[2], phi = s[3], theta = s[4], psi = s[5];
-  const float alpha_r = s[7], beta_r = s[8], P = s[9], Q = s[10], R = s[11];
-  const float T = u[0], ail = u[2], rud = u[3], lef = u[4];
-  const float vt = fmaxf(s[6], 0.01f);
-  const float beta_deg = beta_r * R2D;
-
-  const float dail = ail / 21.5f;
-  const float drud = rud / 30.0f;
-  const float dlef = 1.0f - lef / 25.0f;
-
-  // atmos: qbar only
-  const float tfac = 1.0f - 0.703e-5f * alt;
-  const float rho = RHO0 * powf(tfac, 4.14f);
-  const float qbar = 0.5f * rho * vt * vt;
-
-  const float inv_2v = 1.0f / (2.0f * vt);
-  const float hc = (float)CBAR * inv_2v;      // half_cbar_v
-  const float hb = (float)B_SPAN * inv_2v;    // half_b_v
-
-  // coeff_buildup
+// The six body-axis totals (Cx, Cy, Cz, Cl, Cm, Cn) from the 43 raw
+// coefficients (ops/buildup.py:coeff_buildup); hc = CBAR / (2 vt),
+// hb = B_SPAN / (2 vt).
+__device__ __forceinline__ void coeff_buildup(const float c[N_COEF], float dlef, float dail,
+                                              float drud, float P, float Q, float R,
+                                              float beta_deg, float hc, float hb,
+                                              float tot[6]) {
   const float dXdQ = hc * (c[Cxq] + c[dCxq_lef] * dlef);
   const float Cx_tot = c[Cx] + c[dCx_lef] * dlef + dXdQ * Q;
   const float dZdQ = hc * (c[Czq] + c[dCz_lef] * dlef);
@@ -79,6 +62,39 @@ __device__ __forceinline__ void nlplant_core(const float s[12], const float u[5]
   const float Cl_tot = c[Cl] + c[dCl_lef] * dlef + dLdail * dail
                        + c[dCl_r30] * drud + dLdR * R + dLdP * P
                        + c[dClbeta] * beta_deg;
+  tot[0] = Cx_tot;
+  tot[1] = Cy_tot;
+  tot[2] = Cz_tot;
+  tot[3] = Cl_tot;
+  tot[4] = Cm_tot;
+  tot[5] = Cn_tot;
+}
+
+// s[12] state, u[5] control (T, el, ail, rud, lef), c[43] raw coefficients
+// -> xd[12] state derivative.
+__device__ __forceinline__ void nlplant_core(const float s[12], const float u[5],
+                                             const float c[N_COEF], float xd[12]) {
+  const float alt = s[2], phi = s[3], theta = s[4], psi = s[5];
+  const float alpha_r = s[7], beta_r = s[8], P = s[9], Q = s[10], R = s[11];
+  const float T = u[0], ail = u[2], rud = u[3], lef = u[4];
+  const float vt = fmaxf(s[6], 0.01f);
+  const float beta_deg = beta_r * R2D;
+
+  const float dail = ail / 21.5f;
+  const float drud = rud / 30.0f;
+  const float dlef = 1.0f - lef / 25.0f;
+
+  // atmos: qbar only
+  const float tfac = 1.0f - 0.703e-5f * alt;
+  const float rho = RHO0 * powf(tfac, 4.14f);
+  const float qbar = 0.5f * rho * vt * vt;
+
+  const float inv_2v = 1.0f / (2.0f * vt);
+  float tot[6];
+  coeff_buildup(c, dlef, dail, drud, P, Q, R, beta_deg, (float)CBAR * inv_2v,
+                (float)B_SPAN * inv_2v, tot);
+  const float Cx_tot = tot[0], Cy_tot = tot[1], Cz_tot = tot[2];
+  const float Cl_tot = tot[3], Cm_tot = tot[4], Cn_tot = tot[5];
 
   // sixdof_eom
   const float sa = sinf(alpha_r), ca = cosf(alpha_r);

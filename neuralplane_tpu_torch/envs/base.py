@@ -7,12 +7,20 @@ The env owns a torch.Generator on its device, seeded by `reset(seed)`; every
 random draw of the env comes from it (on the card, the step kernel's Philox
 draws are keyed by two seed words drawn from it on the device each step).
 
-With the heading/control/tracking tasks, the Euler solver and the
-step-start xdot reused for the checks (the configs' defaults), a step is one
-launch of the whole-step kernel (`ops/step_cuda.env_step`), state kept
-feature-major between steps. Otherwise the portable branch runs the model,
-task, termination and reward functions on tensors, with the state derivative
-from `ops/aero_cuda.nlplant_distilled`.
+`aero_backend` picks the aero surrogate (`ops/aero.select_aero_weights`):
+"distilled" (and "auto") the consolidated trunk, "pallas" the 43-net
+ensemble in the fused CUDA kernels (the JAX package's name for its fused
+kernels, kept so that the counterpart is found), "stacked" the same 43 nets
+in plain float32 tensor ops on any device.
+
+With the heading/control/tracking tasks, the Euler solver, the step-start
+xdot reused for the checks (the configs' defaults) and a fused backend
+("distilled" or "pallas"), a step is one launch of the whole-step kernel
+(`ops/step_cuda.env_step`), state kept feature-major between steps.
+Otherwise the portable branch runs the model, task, termination and reward
+functions on tensors, with the state derivative from
+`ops/dynamics.nlplant_f16` (one fused xdot kernel per derivative on the
+fused backends).
 """
 from __future__ import annotations
 
@@ -24,7 +32,8 @@ import numpy as np
 import torch
 
 from ..models.f16 import F16Model, F16State, F16StateFM, to_fm
-from ..ops.aero import load_distilled
+from ..ops.aero import (DistilledAeroWeights, GroupedAeroWeights,
+                        select_aero_weights)
 from ..ops.step_cuda import env_step
 from ..ops.task import COND_NAMES
 from ..utils.config import EnvConfig, load_config
@@ -43,25 +52,24 @@ class Env:
             raise NotImplementedError(
                 f"model {model!r}: the port has the F-16 only so far (other "
                 "airframes are ROADMAP.md section 1, item 10)")
-        if aero_backend not in ("auto", "distilled"):
-            raise NotImplementedError(
-                f"aero_backend {aero_backend!r}: the port has the distilled "
-                "surrogate only; the 43-net ensemble ('pallas', 'stacked') is "
-                "ROADMAP.md section 2, kernels 3-6")
         self.device = torch.device(device)
         self.config = config if isinstance(config, EnvConfig) else load_config(config)
         self.num_envs = num_envs
         self.num_agents = self.config.num_agents
         self.n = self.num_envs * self.num_agents
-        self.model = F16Model(self.config, load_distilled(device=self.device))
+        self.model = F16Model(self.config,
+                              select_aero_weights(aero_backend, self.device))
         self.task = TASKS[task](self.config)
         self.generator: Optional[torch.Generator] = None
 
     @property
     def fused(self) -> bool:
-        """Whether step() runs as the single step kernel."""
+        """Whether step() runs as the single step kernel: a fused aero
+        backend (not the stacked one) and the config's fused settings."""
         cfg = self.config
-        return (self.task.kernel_variant is not None and cfg.fused_task_kernel
+        return (isinstance(self.model.weights,
+                           (GroupedAeroWeights, DistilledAeroWeights))
+                and self.task.kernel_variant is not None and cfg.fused_task_kernel
                 and cfg.solver == "euler" and cfg.reuse_step_xdot)
 
     @property

@@ -1,5 +1,14 @@
-"""Aero-coefficient names and the distilled weight container (counterpart of
-neuralplane_tpu/ops/aero.py and the loader of ops/aero_pallas.py:467-521).
+"""Aero-coefficient names, the weight containers of the three aero backends
+and the coefficient query (counterpart of neuralplane_tpu/ops/aero.py and the
+loader of ops/aero_pallas.py:467-521).
+
+Backends (`select_aero_weights`): "stacked" is the 43-net ensemble as plain
+float32 tensor ops on any device (`AeroWeights`); "pallas" is the same 43
+nets inside the fused CUDA kernels of `ops/aero_grouped_cuda.py` and
+`ops/step_cuda.py` (`GroupedAeroWeights`; the name is kept from the JAX
+package, where those kernels are Pallas kernels); "distilled" is the
+consolidated single-trunk surrogate (`DistilledAeroWeights`); "auto" is
+"distilled".
 """
 from __future__ import annotations
 
@@ -32,10 +41,21 @@ OUT = 64      # readout rows (43 real, zero-padded)
 F_PAD = 80    # the kernels' feature width: 68 features padded to 5 x 16
 KERNEL_HIDDEN = 256  # the hidden width the CUDA kernels are built for (csrc/distilled.cuh)
 
-_DISTILLED_NPZ = os.path.join(
+_DATA = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "neuralplane_tpu", "data", "f16_aero_distilled.npz")
+    "neuralplane_tpu", "data")
+_DISTILLED_NPZ = os.path.join(_DATA, "f16_aero_distilled.npz")
+_AERO_NPZ = os.path.join(_DATA, "f16_aero.npz")
 LEAVES = ("W1", "b1", "W2", "b2", "W3", "b3", "out_mean", "out_std")
+AERO_LEAVES = ("W1", "b1", "W2", "b2", "W3", "b3", "W4", "b4")
+BACKENDS = ("auto", "distilled", "pallas", "stacked")
+# Widths of one of the 43 nets: 3 -> 20 -> 20 -> 10 -> 1.
+N_IN, N_H1, N_H2, N_H3 = 3, 20, 20, 10
+# The grouped kernels' padded widths (csrc/grouped.cuh): K of each product
+# in 8s, N in 8s.
+KP1, NP1, NP2, NP3 = 8, 24, 24, 16
+FRAG_WORDS = 18      # 32-bit words of B fragments per lane and net
+VEC_FLOATS = 84      # b1[24] b2[24] b3[16] W4[16] b4, padded to a multiple of 4
 
 
 @dataclasses.dataclass(eq=False)
@@ -126,3 +146,196 @@ def load_distilled(path: str | None = None, device="cuda") -> DistilledAeroWeigh
                 raise ValueError(f"{path}: {key} mismatch - re-run distillation")
         leaves = [z[k] for k in LEAVES]
     return distilled_from_numpy(leaves, device=device)
+
+
+@dataclasses.dataclass(eq=False)
+class AeroWeights:
+    """The 43-net ensemble, stacked: every leaf is float32 and leads with
+    the net axis K = 43 (neuralplane_tpu/ops/aero.py:AeroWeights). One net is
+    y = relu(relu(relu(x W1 + b1) W2 + b2) W3 + b3) . W4 + b4 on raw
+    (alpha_deg, beta_deg, el_deg). This container selects the plain stacked
+    query (`aero_backend="stacked"`)."""
+    W1: torch.Tensor  # [K, 3, 20]
+    b1: torch.Tensor  # [K, 20]
+    W2: torch.Tensor  # [K, 20, 20]
+    b2: torch.Tensor  # [K, 20]
+    W3: torch.Tensor  # [K, 20, 10]
+    b3: torch.Tensor  # [K, 10]
+    W4: torch.Tensor  # [K, 10]
+    b4: torch.Tensor  # [K]
+
+    @property
+    def device(self) -> torch.device:
+        return self.W1.device
+
+    def leaves(self):
+        return tuple(getattr(self, k) for k in AERO_LEAVES)
+
+    def to_numpy(self):
+        """float32 numpy leaves in AERO_LEAVES order (inverse of aero_from_numpy)."""
+        return tuple(t.detach().cpu().numpy() for t in self.leaves())
+
+
+def _fragment_words(B: torch.Tensor, k0: int, j: int, halves: int):
+    """B-operand fragment words of mma.sync.m16n8k16 (halves = 2) or
+    m16n8k8 (halves = 1) for rows k0.. of B [K, rows, cols] (bf16), column
+    tile j: lane 4g + t holds (B[k0 + 2t + 8h][8j + g], B[k0 + 2t + 1 + 8h]
+    [8j + g]) as the low and high half of word h. Returns `halves` int32
+    tensors [K, 32]."""
+    lane = torch.arange(32)
+    g, t = lane >> 2, lane & 3
+    words = []
+    for h in range(halves):
+        r = k0 + 2 * t + 8 * h
+        pair = torch.stack([B[:, r, 8 * j + g], B[:, r + 1, 8 * j + g]], dim=-1)
+        words.append(pair.contiguous().view(torch.int32)[..., 0])
+    return words
+
+
+@dataclasses.dataclass(eq=False)
+class GroupedAeroWeights(AeroWeights):
+    """The same 43 nets for the fused CUDA kernels (`aero_backend="pallas"`;
+    counterpart of GroupedAeroWeightsT). The leaves stay the stacked float32
+    ones; `packed()` is the kernels' layout, and the plain versions round
+    the leaves to bf16 where the kernels do."""
+
+    def __post_init__(self):
+        self._packed = None
+
+    def packed(self):
+        """(frags, vec), made once per container (csrc/grouped.cuh reads
+        them). One net is one chain of tensor-core products with K padded
+        3 -> 8 and 20 -> 16 + 8, N padded 20 -> 24 and 10 -> 16:
+        frags int32 [K, 9, 32, 2]: per net and lane 18 words of bf16 B
+        fragments - the m16n8k8 ones first (W1 tiles 0-2, rows 16-23 of W2
+        tiles 0-2 and of W3 tiles 0-1), then the m16n8k16 ones (rows 0-15
+        of W2 tiles 0-2, W3 tiles 0-1), two words each - stored as 9 pairs
+        so that a warp reads one pair per lane from consecutive addresses;
+        vec float32 [K, 84]: b1 (24), b2 (24), b3 (16), W4 rounded to bf16
+        (16), b4, zero padded."""
+        if self._packed is None:
+            bf = torch.bfloat16
+            k = self.W1.shape[0]
+            cpu = [t.detach().float().cpu() for t in self.leaves()]
+            W1, b1, W2, b2, W3, b3, W4, b4 = cpu
+            B1 = torch.zeros(k, KP1, NP1, dtype=bf)
+            B1[:, :N_IN, :N_H1] = W1.to(bf)
+            B2 = torch.zeros(k, NP1, NP2, dtype=bf)
+            B2[:, :N_H1, :N_H2] = W2.to(bf)
+            B3 = torch.zeros(k, NP2, NP3, dtype=bf)
+            B3[:, :N_H2, :N_H3] = W3.to(bf)
+            words = []
+            for j in range(NP1 // 8):
+                words += _fragment_words(B1, 0, j, 1)
+            for j in range(NP2 // 8):
+                words += _fragment_words(B2, 16, j, 1)
+            for j in range(NP3 // 8):
+                words += _fragment_words(B3, 16, j, 1)
+            for j in range(NP2 // 8):
+                words += _fragment_words(B2, 0, j, 2)
+            for j in range(NP3 // 8):
+                words += _fragment_words(B3, 0, j, 2)
+            assert len(words) == FRAG_WORDS
+            frags = torch.stack(words, dim=1).reshape(k, FRAG_WORDS // 2, 2, 32)
+            frags = frags.permute(0, 1, 3, 2).contiguous()
+            vec = torch.zeros(k, VEC_FLOATS)
+            vec[:, 0:N_H1] = b1
+            vec[:, NP1:NP1 + N_H2] = b2
+            vec[:, NP1 + NP2:NP1 + NP2 + N_H3] = b3
+            vec[:, NP1 + NP2 + NP3:NP1 + NP2 + NP3 + N_H3] = W4.to(bf).float()
+            vec[:, NP1 + NP2 + 2 * NP3] = b4
+            self._packed = (frags.to(self.device), vec.to(self.device))
+        return self._packed
+
+
+def aero_from_numpy(leaves: Sequence[np.ndarray], device="cuda") -> AeroWeights:
+    """Carry the JAX package's AeroWeights leaves (as numpy, in AERO_LEAVES
+    order) into the port's stacked container on `device`."""
+    if len(leaves) != len(AERO_LEAVES):
+        raise ValueError(f"expected {len(AERO_LEAVES)} leaves {AERO_LEAVES}, "
+                         f"got {len(leaves)}")
+    t = {name: torch.from_numpy(np.asarray(a).astype(np.float32)).to(device)
+         for name, a in zip(AERO_LEAVES, leaves)}
+    k = t["W1"].shape[0]
+    want = {"W1": (k, N_IN, N_H1), "b1": (k, N_H1), "W2": (k, N_H1, N_H2),
+            "b2": (k, N_H2), "W3": (k, N_H2, N_H3), "b3": (k, N_H3),
+            "W4": (k, N_H3), "b4": (k,)}
+    for name, shape in want.items():
+        if tuple(t[name].shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t[name].shape)}")
+    return AeroWeights(**t)
+
+
+def pack_grouped(w: AeroWeights) -> GroupedAeroWeights:
+    """The stacked container as the fused kernels' one (counterpart of
+    ops/aero_pallas.py:pack_grouped_t); the leaves are shared."""
+    return GroupedAeroWeights(*w.leaves())
+
+
+def load_aero_weights(path: str | None = None, device="cuda") -> AeroWeights:
+    """Load the shipped 43-net npz (the JAX package's data file, read by
+    path), checking the coefficient order as ops/aero.py:_load_np does."""
+    path = path or _AERO_NPZ
+    with np.load(path) as z:
+        names = tuple(str(n) for n in z["names"])
+        if names != AERO_NAMES:
+            raise ValueError(f"{path}: coefficient order mismatch - regenerate")
+        leaves = [z[k] for k in AERO_LEAVES]
+    return aero_from_numpy(leaves, device=device)
+
+
+def select_aero_weights(backend: str = "auto", device="cuda"):
+    """The weight container of an aero backend on `device`: "stacked" ->
+    AeroWeights (plain float32 tensor ops, any device), "pallas" ->
+    GroupedAeroWeights (the 43 nets in the fused CUDA kernels),
+    "distilled" or "auto" -> DistilledAeroWeights. The environment variable
+    NEURALPLANE_AERO_BACKEND overrides `backend`, as in the JAX package."""
+    backend = os.environ.get("NEURALPLANE_AERO_BACKEND", backend)
+    if backend not in BACKENDS:
+        raise ValueError(f"aero_backend must be one of {BACKENDS}, got {backend!r}")
+    if backend == "stacked":
+        return load_aero_weights(device=device)
+    if backend == "pallas":
+        return pack_grouped(load_aero_weights(device=device))
+    return load_distilled(device=device)
+
+
+def aero_coeffs_stacked(w: AeroWeights, alpha_deg, beta_deg, el_deg) -> torch.Tensor:
+    """The float32 stacked query (ops/aero.py:120-130): [n] x 3 -> [n, K]."""
+    k = w.W1.shape[0]
+    x = torch.stack([alpha_deg, beta_deg, el_deg], dim=-1)             # [n, 3]
+    n = x.shape[0]
+    h = torch.relu(x @ w.W1.permute(1, 0, 2).reshape(N_IN, k * N_H1)
+                   + w.b1.reshape(k * N_H1)).reshape(n, k, N_H1)
+    h = torch.relu(torch.einsum("nki,kij->nkj", h, w.W2) + w.b2)     # [n, K, 20]
+    h = torch.relu(torch.einsum("nki,kij->nkj", h, w.W3) + w.b3)     # [n, K, 10]
+    return torch.einsum("nki,ki->nk", h, w.W4) + w.b4                  # [n, K]
+
+
+def aero_coeffs_t(w, alpha_deg, beta_deg, el_deg) -> torch.Tensor:
+    """All 43 coefficients, coefficient-major: [K, n] rows in AERO_NAMES
+    order (ops/aero.py:aero_coeffs_t). Dispatches on the container: the
+    fused kernel for GroupedAeroWeights, the float32 stacked query for
+    AeroWeights, the quantized trunk for DistilledAeroWeights."""
+    if isinstance(w, GroupedAeroWeights):
+        from .aero_grouped_cuda import aero_coeffs_grouped
+        return aero_coeffs_grouped(w, alpha_deg, beta_deg, el_deg)
+    if isinstance(w, AeroWeights):
+        return aero_coeffs_stacked(w, alpha_deg, beta_deg, el_deg).T
+    if isinstance(w, DistilledAeroWeights):
+        p = distill.DistilledParams(
+            W1=w.W1.float(), b1=w.b1, W2=w.W2.float(), b2=w.b2,
+            W3=w.W3[:K].float(), b3=w.b3[:K])
+        return distill.quantized_coeffs(p, w.out_mean[:K], w.out_std[:K],
+                                        alpha_deg, beta_deg, el_deg)
+    raise TypeError(f"aero_coeffs_t got {type(w).__name__}")
+
+
+def aero_coeffs(w, alpha_deg, beta_deg, el_deg) -> torch.Tensor:
+    """All 43 coefficients, [n, K] with columns in AERO_NAMES order
+    (ops/aero.py:aero_coeffs); same dispatch as aero_coeffs_t, the fused
+    kernel writing its rows in this layout itself."""
+    if isinstance(w, GroupedAeroWeights):
+        from .aero_grouped_cuda import aero_coeffs_grouped
+        return aero_coeffs_grouped(w, alpha_deg, beta_deg, el_deg, row_major=True)
+    return aero_coeffs_t(w, alpha_deg, beta_deg, el_deg).T

@@ -22,7 +22,7 @@ from typing import Dict, Iterable
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("nlplant_distilled", "env_step")
+SOURCES = ("nlplant_distilled", "env_step", "aero_grouped", "task_step")
 # -fmad=false keeps a*b+c as two roundings, as the plain PyTorch versions
 # compute it; the division and sqrt stay IEEE (nvcc's default without
 # --use_fast_math).

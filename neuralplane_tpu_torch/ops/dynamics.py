@@ -126,13 +126,22 @@ def nlplant_core(sv, uv, get_coeff):
 
 
 def nlplant_f16(w, s: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """F-16 state derivative, s [n,12], u [n,5] -> xdot [n,12], on the
-    distilled aero backend (the only one this port carries so far)."""
-    from .aero import DistilledAeroWeights
-    if not isinstance(w, DistilledAeroWeights):
-        raise NotImplementedError(
-            f"nlplant_f16 got {type(w).__name__}; the port has only the "
-            "distilled backend (the 43-net ensemble is ROADMAP.md section 2, "
-            "kernels 3-6)")
-    from .aero_cuda import nlplant_distilled
-    return nlplant_distilled(w, s, u)
+    """F-16 state derivative, s [n,12], u [n,5] -> xdot [n,12], dispatched
+    on the aero container (neuralplane_tpu/ops/dynamics.py:160-185): the
+    fused 43-net kernel for GroupedAeroWeights, the fused distilled kernel
+    for DistilledAeroWeights, and for the stacked AeroWeights the float32
+    query followed by nlplant_core in plain tensor ops."""
+    from . import aero
+    if isinstance(w, aero.GroupedAeroWeights):
+        from .aero_grouped_cuda import nlplant_grouped
+        return nlplant_grouped(w, s, u)
+    if isinstance(w, aero.DistilledAeroWeights):
+        from .aero_cuda import nlplant_distilled
+        return nlplant_distilled(w, s, u)
+    if not isinstance(w, aero.AeroWeights):
+        raise TypeError(f"nlplant_f16 got {type(w).__name__}")
+    c = aero.aero_coeffs_t(w, s[:, 7] * R2D, s[:, 8] * R2D, u[:, 1])
+    xd = nlplant_core(tuple(s[:, i] for i in range(12)),
+                      tuple(u[:, i] for i in range(5)),
+                      lambda name: c[aero.IDX[name]])
+    return torch.stack(xd, dim=1)

@@ -1,10 +1,12 @@
-"""Whole env step: the Hopper kernel and its plain version (counterpart of
-neuralplane_tpu/ops/step_pallas.py, distilled mode).
+"""Whole env step: the Hopper kernels and their plain version (counterpart
+of neuralplane_tpu/ops/step_pallas.py, distilled and grouped mode).
 
 One step, per aircraft: masked reset select (optionally with the init draws
-and the target resample drawn in the kernel), actuator lag, distilled aero
-surrogate, nlplant, Euler, and the task layer (22-slot observation with
-optional sensor noise, six terminations, reward, per-condition counts).
+and the target resample drawn in the kernel), actuator lag, aero surrogate
+(the distilled trunk for DistilledAeroWeights, the 43-net ensemble for
+GroupedAeroWeights), nlplant, Euler, and the task layer (22-slot observation
+with optional sensor noise, six terminations, reward, per-condition counts).
+The two modes share the draws, the noise, the counts and the outputs.
 
 `env_step(...)` launches `csrc/env_step.cu` on CUDA tensors and runs
 `env_step_plain` on CPU tensors; nothing else.
@@ -23,8 +25,9 @@ from typing import Optional, Tuple
 import torch
 
 from . import cuda_build
-from .aero import IDX, DistilledAeroWeights
+from .aero import IDX, DistilledAeroWeights, GroupedAeroWeights
 from .aero_cuda import distilled_coeff_rows, distilled_feature_rows
+from .aero_grouped_cuda import grouped_coeff_rows
 from .dynamics import R2D, nlplant_core
 from .task import N_CND, N_OBS, VARIANTS, task_consts, task_rows
 from ..utils.math import wrap_PI
@@ -84,7 +87,17 @@ def _resample_targets(variant: str, rc: dict, du, alt_init, vt_init):
             alt_init + dist * torch.sin(th1))
 
 
-def env_step_plain(variant: str, cfg, w: DistilledAeroWeights,
+def _check_weights(w) -> bool:
+    """True for the grouped (43-net) container, False for the distilled one."""
+    if isinstance(w, GroupedAeroWeights):
+        return True
+    if isinstance(w, DistilledAeroWeights):
+        return False
+    raise TypeError(f"the step kernel takes DistilledAeroWeights or "
+                    f"GroupedAeroWeights, got {type(w).__name__}")
+
+
+def env_step_plain(variant: str, cfg, w,
                    sf: torch.Tensor, uf: torch.Tensor, action4: torch.Tensor,
                    reset_mask: torch.Tensor, alt_init: Optional[torch.Tensor],
                    vt_init: Optional[torch.Tensor], targets: Tuple,
@@ -128,8 +141,12 @@ def env_step_plain(variant: str, cfg, w: DistilledAeroWeights,
               for i in range(N_ACT)]
     u_rows.append(torch.zeros_like(u_rows[0]))
     # 3. xdot at (post-reset s, lagged u)
-    ft = distilled_feature_rows(s_rows[7] * R2D, s_rows[8] * R2D, u_rows[1])
-    c = distilled_coeff_rows(ft, w, hidden_bf16)
+    if _check_weights(w):
+        c = grouped_coeff_rows(w, s_rows[7] * R2D, s_rows[8] * R2D, u_rows[1],
+                               hidden_bf16)
+    else:
+        ft = distilled_feature_rows(s_rows[7] * R2D, s_rows[8] * R2D, u_rows[1])
+        c = distilled_coeff_rows(ft, w, hidden_bf16)
     xd = nlplant_core(tuple(s_rows), tuple(u_rows), lambda nm: c[IDX[nm]])
     # 4. Euler
     dt = float(cfg.dt)
@@ -209,6 +226,10 @@ def _lib():
         lib.np_env_step.argtypes = [p] * 11 + [p] * 8 + [StepParams] \
             + [p] * 10 + [p]
         lib.np_env_step.restype = ctypes.c_int
+        # the same with (frags, vec) for the 8 weights
+        lib.np_env_step_grouped.argtypes = [p] * 11 + [p] * 2 + [StepParams] \
+            + [p] * 10 + [p]
+        lib.np_env_step_grouped.restype = ctypes.c_int
         lib._np_typed = True
     return lib
 
@@ -217,7 +238,7 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def env_step(variant: str, cfg, w: DistilledAeroWeights, sf: torch.Tensor,
+def env_step(variant: str, cfg, w, sf: torch.Tensor,
              uf: torch.Tensor, action4: torch.Tensor, reset_mask: torch.Tensor,
              alt_init: Optional[torch.Tensor], vt_init: Optional[torch.Tensor],
              targets: Tuple, step_count: torch.Tensor,
@@ -231,6 +252,7 @@ def env_step(variant: str, cfg, w: DistilledAeroWeights, sf: torch.Tensor,
     with reset_draws) and the post-reset step count (already
     `where(mask, 0, sc) + 1`). Returns (sf', uf', obs [n,22], done, bad,
     reward, counts int32[6]) [+ post-resample targets with reset_draws].
+    `w` is the distilled container or the grouped 43-net one.
 
     On CUDA tensors the kernel draws from Philox keyed by `noise_seed`
     (int32 [2] on the device, needed when noise_scale > 0 or reset_draws);
@@ -238,6 +260,7 @@ def env_step(variant: str, cfg, w: DistilledAeroWeights, sf: torch.Tensor,
     `env_step.launches` counts kernel launches."""
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
+    grouped = _check_weights(w)
     n = sf.shape[1]
     if sf.shape != (N_S, n) or uf.shape != (N_U, n) or action4.shape != (n, N_ACT):
         raise ValueError(f"want sf [12,n], uf [5,n], action4 [n,4]; got "
@@ -282,11 +305,12 @@ def env_step(variant: str, cfg, w: DistilledAeroWeights, sf: torch.Tensor,
     counts = torch.zeros(N_CND, dtype=torch.int32, device=dev)
     tg_o = [torch.empty(n, dtype=torch.float32, device=dev)
             for _ in range(3)] if reset_draws else [None] * 3
-    params = step_params(variant, cfg, n, w.hidden, hidden_bf16,
+    params = step_params(variant, cfg, n, 0 if grouped else w.hidden, hidden_bf16,
                          float(noise_scale), reset_draws)
     if n:
         lib = _lib()
-        code = lib.np_env_step(
+        launch = lib.np_env_step_grouped if grouped else lib.np_env_step
+        code = launch(
             sf.data_ptr(), uf.data_ptr(), action4.data_ptr(), mask.data_ptr(),
             _ptr(a_init), _ptr(v_init), *(t.data_ptr() for t in tg),
             sc.data_ptr(), _ptr(noise_seed if draws else None),

@@ -81,6 +81,7 @@ def quantized_coeffs(p: DistilledParams, mean, std, alpha_deg, beta_deg,
     """Raw-coefficient rows [K, n] (AERO_NAMES order), quantized path."""
     x = torch.stack([alpha_deg, beta_deg, el_deg], dim=1)
     z = quantized_coeffs_z(p, x, hidden_bf16)
-    std = torch.as_tensor(np.array(std, np.float32), device=z.device)
-    mean = torch.as_tensor(np.array(mean, np.float32), device=z.device)
+    std, mean = (v.to(z.device, torch.float32) if isinstance(v, torch.Tensor)
+                 else torch.as_tensor(np.array(v, np.float32), device=z.device)
+                 for v in (std, mean))
     return (z * std + mean).T

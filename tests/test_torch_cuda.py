@@ -1,0 +1,159 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card
+(ops/aero_grouped_cuda.py, ops/task_cuda.py, ops/step_cuda.py in both
+modes), at n = 4099 (no multiple of any tile). Every test here is marked
+`cuda` and skips without an NVIDIA GPU. The file imports no JAX, so that it
+runs where only PyTorch is installed:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda
+
+It also holds the numpy input generators that the CPU parity tests share.
+"""
+import numpy as np
+import pytest
+import torch
+
+from neuralplane_tpu_torch.ops import aero as taero
+from neuralplane_tpu_torch.ops import aero_grouped_cuda as tgrp
+from neuralplane_tpu_torch.ops import step_cuda, task_cuda
+from neuralplane_tpu_torch.utils.config import load_config
+
+T = torch.from_numpy
+
+
+def envelope_states(rng, n):
+    """[n, 12] states and [n, 5] controls inside the termination limits."""
+    s = np.zeros((n, 12), np.float32)
+    s[:, 0:2] = rng.uniform(-3e3, 3e3, (n, 2))
+    s[:, 2] = rng.uniform(5e3, 2.5e4, n)
+    s[:, 3:6] = rng.uniform(-0.8, 0.8, (n, 3))
+    s[:, 6] = rng.uniform(400.0, 1300.0, n)
+    s[:, 7:9] = rng.uniform(-0.2, 0.4, (n, 2))
+    s[:, 9:12] = rng.uniform(-0.5, 0.5, (n, 3))
+    u = np.zeros((n, 5), np.float32)
+    u[:, 0] = rng.uniform(1e3, 1e4, n)
+    u[:, 1:4] = rng.uniform(-15.0, 15.0, (n, 3))
+    return s, u
+
+
+def query_points(seed, n):
+    """(alpha_deg, beta_deg, el) of tests/test_aero_pallas.py:31-33."""
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(-15, 40, n).astype(np.float32),
+            rng.uniform(-25, 25, n).astype(np.float32),
+            rng.uniform(-20, 20, n).astype(np.float32))
+
+
+def envelope(seed, n):
+    """States and controls of tests/test_aero_pallas.py:94-110."""
+    rng = np.random.default_rng(seed)
+    s = np.zeros((n, 12), np.float32)
+    s[:, 0] = rng.uniform(-1e4, 1e4, n)
+    s[:, 1] = rng.uniform(-1e4, 1e4, n)
+    s[:, 2] = rng.uniform(3000, 30000, n)
+    s[:, 3] = rng.uniform(-1.0, 1.0, n)
+    s[:, 4] = rng.uniform(-0.8, 0.8, n)
+    s[:, 5] = rng.uniform(-3.0, 3.0, n)
+    s[:, 6] = rng.uniform(300, 1200, n)
+    s[:, 7] = rng.uniform(-0.3, 0.7, n)
+    s[:, 8] = rng.uniform(-0.4, 0.4, n)
+    s[:, 9:12] = rng.uniform(-1.0, 1.0, (n, 3))
+    u = np.zeros((n, 5), np.float32)
+    u[:, 0] = rng.uniform(0, 5e4, n)
+    u[:, 1:4] = rng.uniform(-20, 20, (n, 3))
+    return s, u
+
+
+def totals_feats(seed, n):
+    """The inputs of tests/test_aero_pallas.py:55-67."""
+    rng = np.random.default_rng(seed)
+    alpha, beta, el = (rng.uniform(lo, hi, n) for lo, hi in ((-15, 40), (-25, 25), (-20, 20)))
+    dlef = rng.uniform(0.0, 1.0, n)
+    dail, drud = rng.uniform(-1.0, 1.0, n), rng.uniform(-1.0, 1.0, n)
+    P, Q, R = (rng.uniform(-1, 1, n) for _ in range(3))
+    vt = rng.uniform(300, 1200, n)
+    return np.stack([alpha, beta, el, dlef, dail, drud, P, Q, R,
+                     1.0 / (2.0 * vt)]).astype(np.float32)
+
+
+def card_weights(backend="pallas"):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return taero.select_aero_weights(backend, device="cuda")
+
+
+def assert_kernel_close(got, want):
+    """chip_smoke.py's limits: per column relative to its RMS, median
+    1e-5, at most 1% of rows above 1e-3, none above 0.1."""
+    got, want = got.reshape(got.shape[0], -1), want.reshape(want.shape[0], -1)
+    err = (got - want).abs() / want.pow(2).mean(0).sqrt().clamp_min(1e-12)
+    assert err.median(0).values.max() < 1e-5
+    assert (err > 1e-3).float().mean(0).max() < 1e-2 and err.max() < 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row_major", [False, True])
+def test_coeffs_kernel_matches_plain_on_card(row_major):
+    w = card_weights()
+    a, b, e = (T(x).cuda() for x in query_points(8, 4099))
+    got = tgrp.aero_coeffs_grouped(w, a, b, e, row_major=row_major)
+    want = tgrp.aero_coeffs_grouped_plain(w, a, b, e, row_major=row_major)
+    assert got.shape == ((4099, 43) if row_major else (43, 4099))
+    assert_kernel_close(got if row_major else got.T, want if row_major else want.T)
+
+
+@pytest.mark.cuda
+def test_totals_kernel_matches_plain_on_card():
+    w = card_weights()
+    feats = T(totals_feats(9, 4099)).cuda()
+    assert_kernel_close(tgrp.aero_totals(w, feats).T, tgrp.aero_totals_plain(w, feats).T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden_bf16", [True, False])
+def test_xdot_kernel_matches_plain_on_card(hidden_bf16):
+    w = card_weights()
+    s, u = (T(x).cuda() for x in envelope(10, 4099))
+    assert_kernel_close(tgrp.nlplant_grouped(w, s, u, hidden_bf16),
+                        tgrp.nlplant_grouped_plain(w, s, u, hidden_bf16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["heading", "control", "tracking"])
+@pytest.mark.parametrize("backend", ["pallas", "distilled"])
+def test_step_kernel_matches_plain_on_card(backend, variant):
+    w = card_weights(backend)
+    n = 4099
+    rng = np.random.default_rng(12)
+    cfg = load_config(variant)
+    s, u = envelope_states(rng, n)
+    f = lambda a: T(np.ascontiguousarray(a, np.float32)).cuda()
+    args = (variant, cfg, w, f(s.T), f(u.T), f(rng.uniform(-1.2, 1.2, (n, 4))),
+            T(rng.uniform(size=n) < 0.2).cuda(),
+            f(rng.uniform(cfg.min_altitude, cfg.max_altitude, n)),
+            f(rng.uniform(cfg.min_vt, cfg.max_vt, n)),
+            tuple(f(s[:, k] + rng.uniform(-1, 1, n)) for k in (2, 5, 6)),
+            T(rng.integers(0, 2600, n).astype(np.int32)).cuda())
+    got, want = step_cuda.env_step(*args), step_cuda.env_step_plain(*args)
+    assert_kernel_close(got[0].T, want[0].T)
+    assert_kernel_close(got[2], want[2])
+    assert (got[3] != want[3]).float().mean() <= 1e-3
+    assert (got[4] != want[4]).float().mean() <= 1e-3
+    assert (got[6] - want[6]).abs().max() <= 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["heading", "control", "tracking"])
+def test_task_step_kernel_matches_plain_on_card(variant):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    n = 4099
+    rng = np.random.default_rng(13)
+    s, u = envelope_states(rng, n)
+    f = lambda a: T(np.ascontiguousarray(a, np.float32)).cuda()
+    args = (variant, load_config(variant), f(s), f(u), f(rng.normal(0, 1, (n, 12))),
+            tuple(f(s[:, k] + rng.uniform(-1, 1, n)) for k in (2, 5, 6)),
+            T(rng.integers(0, 2600, n).astype(np.int32)).cuda())
+    got, want = task_cuda.task_step(*args), task_cuda.task_step_plain(*args)
+    assert_kernel_close(got[0], want[0])
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert torch.equal(got[4], want[4])

@@ -1,7 +1,7 @@
-"""The port's slice as a whole: a JAX ControlEnv("heading") and the port's
+"""The port's env as a whole: a JAX ControlEnv("heading") and the port's
 ControlEnv step side by side on the CPU from the same state, with the same
-distilled weights (the shipped H = 256 net) and actions and sensor noise
-off.
+weights (the shipped distilled H = 256 net, or the shipped 43 nets on the
+"pallas" and "stacked" backends) and actions and sensor noise off.
 
 The JAX state is carried into the port with Env.state_from_jax. The two
 envs draw reset values from different generators (threefry vs
@@ -110,6 +110,46 @@ def test_heading_portable_branch_matches_jax(interpret_pallas, solver):
     env.model.weights = port_weights(jw)
     assert not env.fused
     run_side_by_side(jenv, env)
+
+
+def test_heading_fused_43_nets_matches_jax(interpret_pallas):
+    """aero_backend="pallas" on both sides: the fused step on the 43 nets."""
+    jenv = JaxControlEnv(num_envs=N, config="heading", aero_backend="pallas")
+    assert jenv._task_kernel
+    jenv.config = jenv.config.replace(noise_scale=0.0, kernel_obs_noise=False,
+                                      kernel_reset_draws=False)
+    env = ControlEnv(num_envs=N, config="heading", aero_backend="pallas", device="cpu")
+    env.config = env.config.replace(noise_scale=0.0, kernel_obs_noise=False,
+                                    kernel_reset_draws=False)
+    assert env.fused
+    run_side_by_side(jenv, env)
+
+
+@pytest.mark.parametrize("backend,solver", [("pallas", "euler"), ("pallas", "rk4"),
+                                            ("stacked", "euler"), ("stacked", "rk4")])
+def test_heading_portable_branch_43_nets_matches_jax(interpret_pallas, backend, solver):
+    """The portable branch on the 43 nets: the fused xdot kernel's
+    arithmetic ("pallas", 1 derivative per Euler step, 4 per RK4 step) and
+    the float32 stacked query ("stacked")."""
+    over = dict(noise_scale=0.0, solver=solver, fused_task_kernel=False)
+    jenv = JaxControlEnv(num_envs=N, config=j_load_config("heading", **over),
+                         task="heading", aero_backend=backend)
+    assert not jenv._task_kernel
+    env = ControlEnv(num_envs=N, config=load_config("heading", **over),
+                     task="heading", aero_backend=backend, device="cpu")
+    assert not env.fused
+    run_side_by_side(jenv, env)
+
+
+def test_stacked_backend_never_fuses():
+    """The stacked container has no step kernel: the configs' fused
+    settings fall through to the portable branch
+    (neuralplane_tpu/envs/base.py:62-71)."""
+    env = ControlEnv(num_envs=4, config="heading", aero_backend="stacked", device="cpu")
+    assert env.config.fused_task_kernel and not env.fused
+    state, obs = env.reset(0)
+    state, out = env.step(state, torch.zeros(4, env.num_actions))
+    assert out.obs.shape == obs.shape == (4, 22) and torch.isfinite(out.obs).all()
 
 
 def test_state_from_jax_round_trip():

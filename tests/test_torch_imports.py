@@ -11,7 +11,9 @@ import torch
 import neuralplane_tpu_torch
 from neuralplane_tpu_torch.envs import ControlEnv, Env
 from neuralplane_tpu_torch.measure import measure_env_step
-from neuralplane_tpu_torch.ops.aero import load_distilled
+from neuralplane_tpu_torch.ops.aero import (load_aero_weights, load_distilled,
+                                            select_aero_weights)
+from neuralplane_tpu_torch.ops.task_cuda import task_step
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -37,7 +39,8 @@ def test_port_imports_no_jax():
     assert n_modules >= 20, r.stdout
 
 
-@pytest.mark.parametrize("entry", [ControlEnv, Env, load_distilled, measure_env_step])
+@pytest.mark.parametrize("entry", [ControlEnv, Env, load_distilled, measure_env_step,
+                                   load_aero_weights, select_aero_weights, task_step])
 def test_entry_points_default_to_cuda(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
 
@@ -53,7 +56,14 @@ def test_control_env_without_device_targets_cuda():
 
 
 def test_aero_backends_outside_the_port_raise():
-    for backend in ("pallas", "stacked"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ControlEnv(num_envs=4, aero_backend=backend, device="cpu")
+    """Only a name outside the four backends raises; each of the four
+    constructs, resets and steps on the CPU."""
+    with pytest.raises(ValueError, match="aero_backend must be one of"):
+        ControlEnv(num_envs=4, aero_backend="mosaic", device="cpu")
+    for backend in ("pallas", "stacked", "distilled", "auto"):
+        env = ControlEnv(num_envs=4, aero_backend=backend, device="cpu")
+        assert env.fused == (backend != "stacked")
+        state, _ = env.reset(0)
+        _, out = env.step(state, torch.zeros(4, env.num_actions))
+        assert torch.isfinite(out.obs).all()
     assert neuralplane_tpu_torch.ControlEnv is ControlEnv

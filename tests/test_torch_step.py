@@ -17,6 +17,7 @@ from neuralplane_tpu_torch.ops import philox, step_cuda
 from neuralplane_tpu_torch.utils.config import load_config
 
 from test_torch_aero import port_weights, random_weights
+from test_torch_cuda import envelope_states
 
 
 @pytest.fixture()
@@ -24,20 +25,6 @@ def interpret_pallas(monkeypatch):
     orig = pl.pallas_call
     monkeypatch.setattr(pl, "pallas_call",
                         lambda *a, **k: orig(*a, **{**k, "interpret": True}))
-
-
-def envelope_states(rng, n):
-    s = np.zeros((n, 12), np.float32)
-    s[:, 0:2] = rng.uniform(-3e3, 3e3, (n, 2))
-    s[:, 2] = rng.uniform(5e3, 2.5e4, n)
-    s[:, 3:6] = rng.uniform(-0.8, 0.8, (n, 3))
-    s[:, 6] = rng.uniform(400.0, 1300.0, n)
-    s[:, 7:9] = rng.uniform(-0.2, 0.4, (n, 2))
-    s[:, 9:12] = rng.uniform(-0.5, 0.5, (n, 3))
-    u = np.zeros((n, 5), np.float32)
-    u[:, 0] = rng.uniform(1e3, 1e4, n)
-    u[:, 1:4] = rng.uniform(-15.0, 15.0, (n, 3))
-    return s, u
 
 
 def pad_rows(a, rows):
