@@ -8,7 +8,8 @@ Phases, each reported on its own line:
   1. the card (nvidia-smi name and power limit);
   2. the kernel build (nvcc, one process per source, started together);
   3. nlplant_distilled against its plain version, shipped weights, both
-     hidden_bf16 modes;
+     hidden_bf16 modes; and a yardstick for the trunk: its three products
+     as torch.matmul on bf16 tensors (timed here, called nowhere in the port);
   4. env_step against env_step_plain for heading, control and tracking over
      chained steps with rows flagged for reset, draws explicit, noise off;
   5. the kernel's Philox draws: rebuilt exactly on the host, the step
@@ -95,7 +96,7 @@ def surrogate_flops(w, n: int) -> float:
 
 def weight_bytes(w) -> int:
     """Bytes of the weights as the kernels read them."""
-    tensors = w.packed() if is_grouped(w) else w.leaves()
+    tensors = w.packed() if is_grouped(w) else (w.packed(),)
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
@@ -181,12 +182,36 @@ def phase_nlplant(w, n, g, dev, table):
         f"f32-hidden {errs[1]:.3e}; |err|/rms median {STATS['median']:.2e} "
         f"flip share {STATS['share']:.2e} max {STATS['max']:.2e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by}) OK")
-    table["nlplant_distilled"] = dict(
+    table.setdefault("nlplant_distilled", {}).update(
         name="nlplant_distilled", route="cuda",
         source="neuralplane_tpu_torch/csrc/nlplant_distilled.cu",
         replaces="neuralplane_tpu/ops/aero_pallas.py:606",
         max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=None)
+
+
+def phase_trunk_yardstick(w, n, dev, table):
+    """The trunk's three products as library calls at the main path's shapes:
+    [n, 80] x [80, 256], [n, 256] x [256, 256], [n, 336] x [336, 48] on bf16
+    tensors, summed. Not the kernels' function (no features, no rounding
+    points, no nlplant, intermediates in device memory), so it is no
+    library_ms; it says what the card's own matrix products take for the
+    same multiply-adds. It draws from a generator of its own, so that the
+    other phases' inputs do not depend on it."""
+    from neuralplane_tpu_torch.ops.aero import F_PAD, OUT_N
+    g = torch.Generator(device=dev).manual_seed(1)
+    H = w.hidden
+    bf = torch.bfloat16
+    shapes = ((F_PAD, H), (H, H), (H + F_PAD, OUT_N))
+    xs = [torch.randn((n, k), generator=g, device=dev).to(bf) for k, _ in shapes]
+    ws = [torch.randn((k, m), generator=g, device=dev).to(bf) for k, m in shapes]
+    ms = [cuda_ms(lambda x=x, wt=wt: torch.matmul(x, wt), 20) for x, wt in zip(xs, ws)]
+    total = sum(ms)
+    log(f"phase 3 trunk yardstick n={n}: trunk_matmul_ms {total:.4f} "
+        f"({' + '.join(f'{t:.4f}' for t in ms)}; torch.matmul on bf16, "
+        f"{' '.join(f'[n,{k}]x[{k},{m}]' for k, m in shapes)}; not the same function)")
+    for key in ("nlplant_distilled", "env_step"):
+        table.setdefault(key, {})["trunk_matmul_ms"] = total
 
 
 def step_inputs(n, g, dev, cfg, variant):
@@ -273,7 +298,7 @@ def phase_step(w, n, g, dev, table, key="env_step", phase=4):
         f"{STATS['median']:.2e} flip share {STATS['share']:.2e} max "
         f"{STATS['max']:.2e}; heading kernel "
         f"{timed['ms']:.4f} ms, plain {timed['plain_ms']:.4f} ms")
-    table[key] = dict(
+    table.setdefault(key, {}).update(
         name=key, route="cuda", source="neuralplane_tpu_torch/csrc/env_step.cu",
         replaces="neuralplane_tpu/ops/step_pallas.py:329", max_abs_err=err,
         library_ms=None, **timed)
@@ -668,6 +693,7 @@ def main(argv=None) -> int:
     w = load_distilled(device=dev)
     table = {}
     phase_nlplant(w, args.n, g, dev, table)
+    phase_trunk_yardstick(w, args.n, dev, table)
     phase_step(w, args.n, g, dev, table)
     phase_draws(w, args.n, g, dev, table)
     phase_main(args.n, args.steps, table)

@@ -1,139 +1,121 @@
-// Distilled aero surrogate for one block of NP_M aircraft: hinge features
-// and the [68 -> 256 -> 256] trunk with its [64, 256 + 68] readout on tensor
-// cores. Twin of neuralplane_tpu_torch/surrogates/distill.py:trunk_z and of
-// the TPU's neuralplane_tpu/ops/aero_pallas.py:distilled_feature_rows /
-// distilled_coeff_rows.
+// Distilled aero surrogate: hinge features and the [68 -> 256 -> 256] trunk
+// with its [43, 256 + 68] readout on Hopper's warpgroup tensor-core
+// instructions. Twin of neuralplane_tpu_torch/surrogates/distill.py:trunk_z
+// and of the TPU's neuralplane_tpu/ops/aero_pallas.py:
+// distilled_feature_rows / distilled_coeff_rows.
 //
-// Layout. A block owns NP_M = 64 aircraft and NP_THREADS = 256 threads
-// (8 warps). The features (bf16, [64][F_LD]) and one hidden layer (bf16,
-// [64][H_LD]) live in shared memory. Each product C[64, N] = A[64, K] W^T
-// runs on mma.sync m16n8k16 (bf16 operands from ldmatrix, float32
-// accumulators in registers). The hidden layers use a 2 x 4 warp grid, each
-// warp a 32 x 64 tile (16 accumulators of 4 floats); the readout a 4 x 2
-// grid of 16 x 32 tiles. The weights (~200 KB in all, L2-resident) stream
-// through shared memory in chunks of all N rows x 32 K, three stages of
-// cp.async in flight, each chunk used for all 64 aircraft of the block.
-// Since a layer's accumulators stay in registers until its K loop ends, the
-// second hidden layer overwrites the first in place, and the readout's raw
-// accumulators go to the same region coefficient-major ([64 coef][64
-// aircraft], float32), where the thread of each aircraft reads its 43
-// coefficients without bank conflicts.
+// Block. One persistent block of 384 threads per SM walks over tiles of
+// NP_M = 64 aircraft (tile = blockIdx.x, + gridDim.x, ...). All weights sit
+// in its shared memory for the whole launch, in the byte image that
+// ops/aero.py:DistilledAeroWeights.packed() lays out on the host (207,936
+// bytes, copied once with cp.async): W1 [256][80], W2 [256][256] and W3
+// [48][336] as wgmma B operands (wgmma.cuh: core matrices of 8 x 8 bf16,
+// k block major), then b3, out_std, out_mean [48] and b1, b2 [256] in
+// float32, then b1, b2 rounded to bf16 (what the hidden_bf16 mode adds).
+//
+// Roles. Warps 0-3 are the multiplier warpgroup: per tile it runs the three
+// products as wgmma m64n128k16 / m64n48k16 with the sums in registers, and
+// turns a layer's sums (bias, ReLU, bf16 rounding, packed in pairs) into
+// the A fragments of the next product in registers: no activation touches
+// shared memory. Warps 4-11 are four pairs of warps; every thread of a pair
+// owns one aircraft of the pair's tile from its inputs to its outputs, so
+// all elementwise work (reset select, lag, hinge features, nlplant, Euler,
+// task layer, draws) runs on lanes that own an aircraft, beside the tensor
+// cores. Pair p takes the block's tiles p, p + 4, ... setmaxnreg moves
+// registers from the owners (136 each) to the multiplier (232), which holds
+// 64 sums, two layers of A fragments and the features at once. The
+// multiplier is the one serial chain of the block, so whatever an owner can
+// do for it, the owner does: it computes its aircraft's 80 features (every
+// column index a constant) and writes them as the words of the first
+// product's A fragments.
+//
+// Hand-over, through mbarriers only (no block-wide barrier in the tile
+// loop). One slot holds a tile's feature fragments, feat[20 words][128
+// multiplier threads]. go[p]: the multiplier has the previous tile's
+// fragments in registers, the slot is free for pair p's next tile.
+// full[p]: the 64 threads of pair p have written their rows. ready[p]: the
+// multiplier has written that tile's 43 raw readout sums per aircraft to
+// the coefficient buffer. empty: the 64 owners have read it.
 //
 // Rounding points (the TPU kernel's): features in float32 by division by
 // IN_SCALE, then bf16; bf16 x bf16 products summed in float32; with
-// hidden_bf16 the accumulator is rounded to bf16, the bias is rounded to
-// bf16, their sum is rounded to bf16, then ReLU; without it ReLU(acc + b)
-// in float32, rounded to bf16 for the next product; the readout keeps its
-// float32 accumulator.
+// hidden_bf16 the sum is rounded to bf16, the bias is rounded to bf16, and
+// add and ReLU run in bf16 (the bf16 sum of two bf16 values equals their
+// float32 sum rounded to bf16: it is exact in float32 unless one is below
+// 2^-16 of the other, and then both give the larger); without it
+// ReLU(sum + b) in float32, rounded to bf16 for the next product; the
+// readout keeps its float32 sum.
 #pragma once
 #include <cstdint>
+#include <type_traits>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "wgmma.cuh"
 
 namespace np_dist {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int NP_M = 64;              // aircraft per block
-constexpr int NP_THREADS = 256;       // 8 warps
-constexpr int NP_H = 256;             // hidden width the kernels are built for
-constexpr int F_PAD = 80;             // features padded to 5 x 16 (zeros)
-constexpr int F_LD = F_PAD + 8;       // shared-memory row pitches (+8: no
-constexpr int H_LD = NP_H + 8;        // ldmatrix bank conflicts)
-constexpr int OUT = 64;               // readout rows, 43 real
+constexpr int NP_M = 64;               // aircraft per tile
+constexpr int NP_H = 256;              // hidden width the kernels are built for
+constexpr int F_PAD = 80;              // features padded to 5 x 16 (zeros)
+constexpr int K3 = NP_H + F_PAD;       // readout depth: [hidden ; features]
+constexpr int OUT_N = 48;              // readout rows in the image, 43 real
+constexpr int NH = 128;                // hidden units per product
 constexpr int N_COEF = 43;
-constexpr int KC = 32;                // K per weight chunk
-constexpr int WC_LD = KC + 8;         // chunk row pitch
-constexpr int STAGES = 3;             // weight chunks in flight
-constexpr int WCHUNK = NP_H * WC_LD;  // elements per chunk buffer (N <= NP_H)
+constexpr int MUL_THREADS = 128;       // the multiplier warpgroup
+constexpr int N_PAIRS = 4;             // pairs of elementwise warps
+constexpr int NP_THREADS = MUL_THREADS + N_PAIRS * NP_M;
+constexpr int MUL_REGS = 232, PAIR_REGS = 136;  // registers per thread by role
+
+// Byte offsets of the weight image (ops/aero.py: IMG_*).
+constexpr int IMG_W1 = 0;
+constexpr int IMG_W2 = IMG_W1 + NP_H * F_PAD * 2;
+constexpr int IMG_W3 = IMG_W2 + NP_H * NP_H * 2;
+constexpr int IMG_B3 = IMG_W3 + OUT_N * K3 * 2;
+constexpr int IMG_SD = IMG_B3 + OUT_N * 4;
+constexpr int IMG_MU = IMG_SD + OUT_N * 4;
+constexpr int IMG_B1 = IMG_MU + OUT_N * 4;
+constexpr int IMG_B2 = IMG_B1 + NP_H * 4;
+constexpr int IMG_B1H = IMG_B2 + NP_H * 4;    // b1, b2 rounded to bf16
+constexpr int IMG_B2H = IMG_B1H + NP_H * 2;
+constexpr int IMG_BYTES = IMG_B2H + NP_H * 2;
+// Behind the image: the coefficient buffer, the feature slot, the barriers.
+constexpr int FEAT_WORDS = F_PAD / 16 * 4;   // A-fragment words per thread
+constexpr int SMEM_COEF = IMG_BYTES;
+constexpr int SMEM_FEAT = SMEM_COEF + NP_M * N_COEF * 4;
+constexpr int SMEM_BARS = SMEM_FEAT + FEAT_WORDS * MUL_THREADS * 4;
+constexpr int N_BARS = 3 * N_PAIRS + 1;
+constexpr int SMEM_BYTES = SMEM_BARS + N_BARS * 8;
+static_assert(IMG_BYTES % 16 == 0, "16-byte copies");
+static_assert(SMEM_BARS % 8 == 0, "mbarriers are 8-byte aligned");
+static_assert(SMEM_BYTES <= 232448, "a block's shared memory on sm_90");
+static_assert(MUL_THREADS * MUL_REGS + N_PAIRS * NP_M * PAIR_REGS <= 65536,
+              "an SM's registers");
 
 // Knots: np.linspace(-20, 90, 45)[1:-1], linspace(-30, 30, 17)[1:-1],
 // linspace(-25, 25, 9)[1:-1]; every knot is exact in float32.
 constexpr int N_ALPHA_K = 43, N_BETA_K = 15, N_EL_K = 7;
 
-struct Weights {
-  const bf16* W1;   // [H][F_PAD]
-  const float* b1;  // [H]
-  const bf16* W2;   // [H][H]
-  const float* b2;  // [H]
-  const bf16* W3;   // [OUT][H + F_PAD]
-  const float* b3;  // [OUT]
-  const float* mu;  // [OUT]
-  const float* sd;  // [OUT]
-};
-
 struct Smem {
-  bf16* feat;    // [NP_M][F_LD]
-  bf16* h;       // [NP_M][H_LD], first then second hidden layer
-  float* cT;     // [OUT][NP_M] readout accumulators, coefficient-major (over h)
-  bf16* wbuf;    // [STAGES][NP_H][WC_LD] weight chunks
-  float* io;     // [NP_M][22] staging for coalesced row-major I/O (over wbuf,
-                 // used only before and after the trunk)
-  float* abe;    // [NP_M][3], alpha_deg, beta_deg, el
+  const bf16* W1;     // wgmma B images
+  const bf16* W2;
+  const bf16* W3;
+  const float* b1;    // [NP_H]
+  const float* b2;    // [NP_H]
+  const bf16* b1h;    // [NP_H], b1 and b2 rounded to bf16
+  const bf16* b2h;
+  const float* b3;    // [OUT_N]
+  const float* sd;    // [OUT_N]
+  const float* mu;    // [OUT_N]
+  float* coef;        // [NP_M][N_COEF] readout sums, one row per aircraft
+  uint32_t* feat;     // [FEAT_WORDS][MUL_THREADS] first product's A fragments
+  uint64_t* go;       // [N_PAIRS]
+  uint64_t* full;     // [N_PAIRS]
+  uint64_t* ready;    // [N_PAIRS]
+  uint64_t* empty;
 };
-
-__host__ __device__ constexpr size_t align128(size_t b) { return (b + 127) & ~size_t(127); }
-
-constexpr size_t SMEM_FEAT = align128(NP_M * F_LD * 2);
-constexpr size_t SMEM_H = align128(NP_M * H_LD * 2);
-constexpr size_t SMEM_W = align128(STAGES * WCHUNK * 2);
-constexpr size_t SMEM_BYTES = SMEM_FEAT + SMEM_H + SMEM_W + align128(NP_M * 3 * 4);
-static_assert(OUT * NP_M * 4 <= SMEM_H, "cT must fit over the hidden layer");
-static_assert(NP_M * 22 * 4 <= SMEM_W, "I/O staging must fit over the weight chunks");
-
-__device__ inline Smem smem_layout(unsigned char* p) {
-  Smem s;
-  s.feat = reinterpret_cast<bf16*>(p);
-  s.h = reinterpret_cast<bf16*>(p + SMEM_FEAT);
-  s.cT = reinterpret_cast<float*>(p + SMEM_FEAT);
-  s.wbuf = reinterpret_cast<bf16*>(p + SMEM_FEAT + SMEM_H);
-  s.io = reinterpret_cast<float*>(p + SMEM_FEAT + SMEM_H);
-  s.abe = reinterpret_cast<float*>(p + SMEM_FEAT + SMEM_H + SMEM_W);
-  return s;
-}
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// x / d rounded to float32, for d in {35, 18, 15}: the product with the
-// double reciprocal, rounded once to float, is the correctly rounded
-// quotient. (x / d is never a float rounding midpoint: a midpoint m has 25
-// significant bits and the odd part of d would give d m more than 24, so
-// |x / d - m| >= 2^-25 |m| / 35, far above the ~2^-52 relative error of the
-// double product.) This is what distill.featurize computes with a float32
-// division, without the division's instruction sequence.
-__device__ __forceinline__ float div_scale(float x, double inv_d) {
-  return __double2float_rn((double)x * inv_d);
-}
-
-// Feature f of one aircraft (distill.featurize): scaled coordinates, then
-// relu hinges at the knots, each divided by its coordinate's IN_SCALE.
-__device__ __forceinline__ float feature(int f, float a, float b, float e) {
-  constexpr double INV_A = 1.0 / 35.0, INV_B = 1.0 / 18.0, INV_E = 1.0 / 15.0;
-  if (f == 0) return div_scale(a - 35.0f, INV_A);
-  if (f == 1) return div_scale(b, INV_B);
-  if (f == 2) return div_scale(e, INV_E);
-  f -= 3;
-  if (f < N_ALPHA_K) return div_scale(fmaxf(a - (-20.0f + 2.5f * (float)(f + 1)), 0.0f), INV_A);
-  f -= N_ALPHA_K;
-  if (f < N_BETA_K) return div_scale(fmaxf(b - (-30.0f + 3.75f * (float)(f + 1)), 0.0f), INV_B);
-  f -= N_BETA_K;
-  if (f < N_EL_K) return div_scale(fmaxf(e - (-25.0f + 6.25f * (float)(f + 1)), 0.0f), INV_E);
-  return 0.0f;  // padding columns 68..79
-}
-
-// All threads: smem.abe -> smem.feat (bf16). Thread t takes aircraft
-// t % NP_M and every (NP_THREADS / NP_M)-th pair of feature columns, so the
-// lanes of a warp evaluate the same feature (no divergence) and store two
-// bf16 at a time. Caller syncs before and after.
-__device__ __forceinline__ void build_features(const Smem& sm) {
-  constexpr int PARTS = NP_THREADS / NP_M;
-  const int r = threadIdx.x % NP_M;
-  const float a = sm.abe[3 * r], b = sm.abe[3 * r + 1], e = sm.abe[3 * r + 2];
-  __nv_bfloat162* row = reinterpret_cast<__nv_bfloat162*>(sm.feat + r * F_LD);
-  for (int q = threadIdx.x / NP_M; q < F_PAD / 2; q += PARTS)
-    row[q] = __floats2bfloat162_rn(feature(2 * q, a, b, e), feature(2 * q + 1, a, b, e));
-}
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -144,161 +126,316 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
                "l"(gmem));
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
                : "memory");
 }
 
-// d += a . b for one m16n8k16 tile, bf16 operands, float32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// One arrival; this thread's earlier shared-memory writes are visible to
+// whoever waits for the phase.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
 }
 
-// All threads: rows [0, N) x columns [k0, k0 + kw) of W (row-major, ldw)
-// -> dst [N][WC_LD], as 16-byte cp.async copies, committed as one group
-// (an empty group when kw == 0, so that every thread commits once per
-// chunk slot).
-__device__ __forceinline__ void load_chunk(bf16* dst, const bf16* __restrict__ W, int ldw,
-                                           int N, int k0, int kw) {
-  const int segs = kw / 8;
-  for (int e = threadIdx.x; e < N * segs; e += NP_THREADS) {
-    const int row = e / segs, seg = e - row * segs;
-    cp_async16(dst + row * WC_LD + seg * 8, W + (size_t)row * ldw + k0 + seg * 8);
+// Wait until the phase of parity `parity` is complete (a new barrier counts
+// as having completed a phase of parity 1). A barrier that does not complete
+// within 2^35 cycles (some 20 s; a launch takes milliseconds) is a fault of
+// the hand-over: trap instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned addr = smem_addr(bar);
+  long long t0 = 0;
+  for (;;) {
+    unsigned ok;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(ok)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (ok) return;
+    const long long now = clock64();
+    if (t0 == 0) t0 = now;
+    else if (now - t0 > (1ll << 35)) __trap();
   }
-  asm volatile("cp.async.commit_group;\n" ::);
 }
 
-// acc[MW][NW] = [A1 | A2][row0 .. row0 + 16 MW, 0 .. K1 + K2) . W^T for
-// this warp's columns col0 .. col0 + 8 NW. W is row-major [N][ldw] and
-// streams through sm.wbuf in chunks of all N rows x KC columns of K. Every
-// thread of the block calls it; it returns after a barrier, with every
-// weight copy done and every warp past its last read of A.
-template <int MW, int NW>
-__device__ __forceinline__ void gemm(const Smem& sm, const bf16* A1, int lda1, int K1,
-                                     const bf16* A2, int lda2, int K2,
-                                     const bf16* __restrict__ W, int ldw, int N, int row0,
-                                     int col0, float (&acc)[MW][NW][4]) {
-  const int lane = threadIdx.x & 31;
-  const int K = K1 + K2;
-  const int chunks = (K + KC - 1) / KC;
-#pragma unroll
-  for (int m = 0; m < MW; ++m)
-#pragma unroll
-    for (int j = 0; j < NW; ++j) acc[m][j][0] = acc[m][j][1] = acc[m][j][2] = acc[m][j][3] = 0.0f;
-#pragma unroll
-  for (int c = 0; c < STAGES - 1; ++c)
-    load_chunk(sm.wbuf + c * WCHUNK, W, ldw, N, c * KC, c < chunks ? min(KC, K - c * KC) : 0);
-  for (int c = 0; c < chunks; ++c) {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2) : "memory");
-    __syncthreads();  // chunk c is in; every warp is done with chunk c - 1
-    const int cn = c + STAGES - 1;
-    load_chunk(sm.wbuf + (cn % STAGES) * WCHUNK, W, ldw, N, cn * KC,
-               cn < chunks ? min(KC, K - cn * KC) : 0);
-    const bf16* wc = sm.wbuf + (c % STAGES) * WCHUNK;
-    const int k0 = c * KC, kw = min(KC, K - k0);
-#pragma unroll
-    for (int kk = 0; kk < KC; kk += 16) {
-      if (kk >= kw) break;
-      const int k = k0 + kk;
-      const bf16* A = k < K1 ? A1 + k : A2 + (k - K1);
-      const int lda = k < K1 ? lda1 : lda2;
-      uint32_t a[MW][4];
-#pragma unroll
-      for (int m = 0; m < MW; ++m)
-        ldmatrix_x4(a[m], A + (row0 + 16 * m + (lane & 15)) * lda + ((lane >> 4) << 3));
-#pragma unroll
-      for (int j = 0; j < NW; j += 2) {
-        uint32_t b[4];
-        ldmatrix_x4(b, wc + (col0 + 8 * j + (lane & 7) + ((lane >> 4) << 3)) * WC_LD + kk
-                           + (((lane >> 3) & 1) << 3));
-#pragma unroll
-        for (int m = 0; m < MW; ++m) {
-          mma_bf16(acc[m][j], a[m], b[0], b[1]);
-          mma_bf16(acc[m][j + 1], a[m], b[2], b[3]);
-        }
-      }
+// All threads of the block, once: copy the weight image, set up the
+// barriers and return the layout; ends with the launch's only block barrier.
+__device__ __forceinline__ Smem block_setup(unsigned char* smem,
+                                            const unsigned char* __restrict__ image) {
+  Smem s;
+  s.W1 = reinterpret_cast<const bf16*>(smem + IMG_W1);
+  s.W2 = reinterpret_cast<const bf16*>(smem + IMG_W2);
+  s.W3 = reinterpret_cast<const bf16*>(smem + IMG_W3);
+  s.b1 = reinterpret_cast<const float*>(smem + IMG_B1);
+  s.b2 = reinterpret_cast<const float*>(smem + IMG_B2);
+  s.b1h = reinterpret_cast<const bf16*>(smem + IMG_B1H);
+  s.b2h = reinterpret_cast<const bf16*>(smem + IMG_B2H);
+  s.b3 = reinterpret_cast<const float*>(smem + IMG_B3);
+  s.sd = reinterpret_cast<const float*>(smem + IMG_SD);
+  s.mu = reinterpret_cast<const float*>(smem + IMG_MU);
+  s.coef = reinterpret_cast<float*>(smem + SMEM_COEF);
+  s.feat = reinterpret_cast<uint32_t*>(smem + SMEM_FEAT);
+  s.go = reinterpret_cast<uint64_t*>(smem + SMEM_BARS);
+  s.full = s.go + N_PAIRS;
+  s.ready = s.full + N_PAIRS;
+  s.empty = s.ready + N_PAIRS;
+  const uint4* src = reinterpret_cast<const uint4*>(image);
+  uint4* dst = reinterpret_cast<uint4*>(smem);
+  for (int e = threadIdx.x; e < IMG_BYTES / 16; e += blockDim.x) cp_async16(dst + e, src + e);
+  asm volatile("cp.async.commit_group;\n" ::);
+  if (threadIdx.x == 0) {
+    for (int p = 0; p < N_PAIRS; ++p) {
+      mbar_init(s.go + p, MUL_THREADS);
+      mbar_init(s.full + p, NP_M);
+      mbar_init(s.ready + p, MUL_THREADS);
     }
+    mbar_init(s.empty, NP_M);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  // the tensor cores read shared memory through the async proxy
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
+  return s;
 }
 
-// Hidden layer: h = ReLU(acc + bias) with the rounding points of the file
-// header, written as bf16 into sm.h. Accumulator element (m, j, e) sits at
-// row row0 + 16 m + lane / 4 + 8 (e / 2), column col0 + 8 j + 2 (lane % 4)
-// + e % 2 (the m16n8k16 layout).
-template <int MW, int NW>
-__device__ __forceinline__ void hidden_epilogue(const Smem& sm, const float (&acc)[MW][NW][4],
-                                                const float* __restrict__ bias,
-                                                bool hidden_bf16, int row0, int col0) {
-  const int lane = threadIdx.x & 31;
+// A role's share of the SM's registers (all four warps of a warpgroup).
+template <int REGS>
+__device__ __forceinline__ void take_registers() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(REGS));
+}
+template <int REGS>
+__device__ __forceinline__ void give_registers() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(REGS));
+}
+
+// x / d rounded to float32, for d in {35, 18, 15}, without the division's
+// instruction sequence: with r = 1 / d rounded to float, q0 = x r is within
+// an ulp of the quotient, the remainder x - q0 d is exact in one fused
+// multiply-add, and q0 + rem r, fused, is the correctly rounded quotient
+// (Markstein's final division step; it holds binade by binade, and was
+// checked against the float32 division for every x of 29 binades and the
+// three divisors). This is what distill.featurize computes with a division.
+__device__ __forceinline__ float div_scale(float x, float d, float r) {
+  const float q0 = x * r;
+  return __fmaf_rn(__fmaf_rn(-q0, d, x), r, q0);
+}
+
+// Feature f of one aircraft (distill.featurize): scaled coordinates, then
+// relu hinges at the knots, each divided by its coordinate's IN_SCALE.
+// Callers pass a constant f, so the branches fold away.
+__device__ __forceinline__ float feature(int f, float a, float b, float e) {
+  constexpr float RA = 1.0f / 35.0f, RB = 1.0f / 18.0f, RE = 1.0f / 15.0f;
+  if (f == 0) return div_scale(a - 35.0f, 35.0f, RA);
+  if (f == 1) return div_scale(b, 18.0f, RB);
+  if (f == 2) return div_scale(e, 15.0f, RE);
+  f -= 3;
+  if (f < N_ALPHA_K)
+    return div_scale(fmaxf(a - (-20.0f + 2.5f * (float)(f + 1)), 0.0f), 35.0f, RA);
+  f -= N_ALPHA_K;
+  if (f < N_BETA_K)
+    return div_scale(fmaxf(b - (-30.0f + 3.75f * (float)(f + 1)), 0.0f), 18.0f, RB);
+  f -= N_BETA_K;
+  if (f < N_EL_K)
+    return div_scale(fmaxf(e - (-25.0f + 6.25f * (float)(f + 1)), 0.0f), 15.0f, RE);
+  return 0.0f;  // padding columns 68..79
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Two float32 values, ReLU, rounded to bf16 and packed, in one instruction
+// (ReLU commutes with the rounding).
+__device__ __forceinline__ uint32_t pack_bf16_relu(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// Four sums of one 8-column block (columns 2t, 2t + 1 of rows g and g + 8)
+// through bias and ReLU, as two words of the next product's A fragment.
+// hidden_bf16: ReLU(x + b) in bf16 as one instruction, x * 1 + b rounded once.
+__device__ __forceinline__ void hidden_pair(const float* c, __nv_bfloat162 b, uint32_t& row_g,
+                                            uint32_t& row_g8) {
+  const __nv_bfloat162 one = __floats2bfloat162_rn(1.0f, 1.0f);
+  const __nv_bfloat162 lo = __hfma2_relu(__floats2bfloat162_rn(c[0], c[1]), one, b);
+  const __nv_bfloat162 hi = __hfma2_relu(__floats2bfloat162_rn(c[2], c[3]), one, b);
+  row_g = *reinterpret_cast<const uint32_t*>(&lo);
+  row_g8 = *reinterpret_cast<const uint32_t*>(&hi);
+}
+
+// The float32-hidden mode: ReLU(x + b) in float32, then bf16.
+__device__ __forceinline__ void hidden_pair(const float* c, float2 b, uint32_t& row_g,
+                                            uint32_t& row_g8) {
+  row_g = pack_bf16_relu(c[0] + b.x, c[1] + b.y);
+  row_g8 = pack_bf16_relu(c[2] + b.x, c[3] + b.y);
+}
+
+// One half (NH = 128 units) of a hidden layer's sums -> the A fragments of
+// the next product: h[kb] covers units 16 kb .. 16 kb + 15 of the half.
+// BIAS is bf16 (hidden_bf16) or float.
+template <typename BIAS>
+__device__ __forceinline__ void hidden_half(float (&acc)[NH / 2],
+                                            const BIAS* __restrict__ bias, int t,
+                                            uint32_t (*h)[4]) {
+  using Pair = typename std::conditional<std::is_same<BIAS, float>::value, float2,
+                                         __nv_bfloat162>::type;
 #pragma unroll
-  for (int j = 0; j < NW; ++j) {
-    const int col = col0 + 8 * j + 2 * (lane & 3);
-    const float2 bb = *reinterpret_cast<const float2*>(bias + col);
+  for (int i = 0; i < NH / 2; ++i) np_wgmma::pin(acc[i]);
 #pragma unroll
-    for (int m = 0; m < MW; ++m)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = row0 + 16 * m + (lane >> 2) + 8 * half;
-        float v0 = acc[m][j][2 * half], v1 = acc[m][j][2 * half + 1];
-        if (hidden_bf16) {
-          v0 = bf16_round(bf16_round(v0) + bf16_round(bb.x));
-          v1 = bf16_round(bf16_round(v1) + bf16_round(bb.y));
-        } else {
-          v0 = v0 + bb.x;
-          v1 = v1 + bb.y;
-        }
-        *reinterpret_cast<__nv_bfloat162*>(sm.h + row * H_LD + col) =
-            __floats2bfloat162_rn(fmaxf(v0, 0.0f), fmaxf(v1, 0.0f));
-      }
+  for (int j = 0; j < NH / 8; ++j) {
+    const Pair b = *reinterpret_cast<const Pair*>(bias + 8 * j + 2 * t);
+    hidden_pair(&acc[4 * j], b, h[j >> 1][2 * (j & 1)], h[j >> 1][2 * (j & 1) + 1]);
   }
 }
 
-// sm.feat -> sm.cT: the three products. Every thread of the block calls it;
-// it returns after a barrier, with sm.cT complete.
-__device__ __forceinline__ void trunk(const Smem& sm, const Weights& w, bool hidden_bf16) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  {  // hidden layers: warp grid 2 (rows) x 4 (columns), 32 x 64 per warp
-    const int row0 = 32 * (warp >> 2), col0 = 64 * (warp & 3);
-    float acc[2][8][4];
-    gemm<2, 8>(sm, sm.feat, F_LD, F_PAD, nullptr, 0, 0, w.W1, F_PAD, NP_H, row0, col0, acc);
-    hidden_epilogue<2, 8>(sm, acc, w.b1, hidden_bf16, row0, col0);
-    __syncthreads();
-    gemm<2, 8>(sm, sm.h, H_LD, NP_H, nullptr, 0, 0, w.W2, NP_H, NP_H, row0, col0, acc);
-    hidden_epilogue<2, 8>(sm, acc, w.b2, hidden_bf16, row0, col0);
-    __syncthreads();
-  }
-  {  // readout over [hidden ; features]: warp grid 4 x 2, 16 x 32 per warp
-    const int row0 = 16 * (warp >> 1), col0 = 32 * (warp & 1);
-    float acc[1][4][4];
-    gemm<1, 4>(sm, sm.h, H_LD, NP_H, sm.feat, F_LD, F_PAD, w.W3, NP_H + F_PAD, OUT, row0,
-               col0, acc);
+// One hidden layer: out = act(A[64, 16 KB] . W^T + bias), as two products
+// of NH = 128 units each, so that sums, A fragments and the finished half
+// fit the warpgroup's registers together. `desc` names W's image.
+template <typename BIAS, int KB>
+__device__ __forceinline__ void hidden_layer(const uint32_t (&a)[KB][4], uint64_t desc,
+                                             const BIAS* __restrict__ bias, int t,
+                                             float (&acc)[NH / 2],
+                                             uint32_t (&out)[NP_H / 16][4]) {
+  using namespace np_wgmma;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+  for (int half = 0; half < NP_H / NH; ++half) {
+    fence();
+#pragma unroll
+    for (int kb = 0; kb < KB; ++kb)  // rows of W: 128 bytes per 8; k: 32 N bytes per 16
+      mma_m64n128k16(acc, a[kb], advance(desc, half * NH * 16 + kb * 32 * NP_H), kb > 0);
+    commit();
+    wait_all();
+    hidden_half(acc, bias + half * NH, t, out + half * (NH / 16));
+  }
+}
+
+// The multiplier warpgroup's whole life: for each of the block's tiles, in
+// order, wait for its feature fragments, run the trunk, and hand the 43
+// readout sums of each aircraft to the tile's owners.
+template <bool HB>
+__device__ __forceinline__ void multiplier_loop(const Smem& sm, int tiles) {
+  using namespace np_wgmma;
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const int r0 = 16 * (threadIdx.x >> 5) + (lane >> 2), r1 = r0 + 8;  // its rows
+  // leading (k) offset 16 N bytes, stride (n) offset 128 bytes
+  const uint64_t d1 = make_desc(sm.W1, 16 * NP_H, 128);
+  const uint64_t d2 = make_desc(sm.W2, 16 * NP_H, 128);
+  const uint64_t d3 = make_desc(sm.W3, 16 * OUT_N, 128);
+  float acc[NH / 2] = {};
+  int j = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++j) {
+    const int p = j % N_PAIRS;
+    mbar_wait(sm.full + p, (j / N_PAIRS) & 1);
+    uint32_t fa[F_PAD / 16][4];
+#pragma unroll
+    for (int kb = 0; kb < F_PAD / 16; ++kb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) fa[kb][i] = sm.feat[(4 * kb + i) * MUL_THREADS + threadIdx.x];
+    mbar_arrive(sm.go + (j + 1) % N_PAIRS);
+    uint32_t h1[NP_H / 16][4], h2[NP_H / 16][4];
+    if (HB) {
+      hidden_layer(fa, d1, sm.b1h, t, acc, h1);
+      hidden_layer(h1, d2, sm.b2h, t, acc, h2);
+    } else {
+      hidden_layer(fa, d1, sm.b1, t, acc, h1);
+      hidden_layer(h1, d2, sm.b2, t, acc, h2);
+    }
+    // readout over [hidden ; features]
+    float z[OUT_N / 2] = {};
+    fence();
+#pragma unroll
+    for (int kb = 0; kb < NP_H / 16; ++kb)
+      mma_m64n48k16(z, h2[kb], advance(d3, kb * 32 * OUT_N), kb > 0);
+#pragma unroll
+    for (int kb = 0; kb < F_PAD / 16; ++kb)
+      mma_m64n48k16(z, fa[kb], advance(d3, (NP_H / 16 + kb) * 32 * OUT_N), 1);
+    commit();
+    wait_all();
+#pragma unroll
+    for (int i = 0; i < OUT_N / 2; ++i) pin(z[i]);
+    // hand over: sums of rows r0 and r1, columns 8 jj + 2t, + 1
+    mbar_wait(sm.empty, (j & 1) ^ 1);
+    float* cr = sm.coef;
+#pragma unroll
+    for (int jj = 0; jj < OUT_N / 8; ++jj)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int row = row0 + (lane >> 2) + 8 * (e >> 1);
-        const int col = col0 + 8 * j + 2 * (lane & 3) + (e & 1);
-        sm.cT[col * NP_M + row] = acc[0][j][e];
+        const int col = 8 * jj + 2 * t + (e & 1);
+        if (col < N_COEF) cr[((e >> 1) ? r1 : r0) * N_COEF + col] = z[4 * jj + e];
       }
-    __syncthreads();
+    mbar_arrive(sm.ready + p);
   }
 }
 
-// Raw coefficients of the aircraft in block row t: (z + b3) * sd + mu.
-__device__ __forceinline__ void coefficients(const Smem& sm, const Weights& w, int t,
-                                             float c[N_COEF]) {
+// The elementwise side of the hand-over. A thread of warps 4-11 is row
+// `row` of pair `pair`; its pair's k-th tile is number pair + N_PAIRS k in
+// the block's order.
+struct Owner {
+  int pair, row;
+};
+
+__device__ __forceinline__ Owner owner() {
+  const int q = threadIdx.x - MUL_THREADS;
+  return Owner{q / NP_M, q % NP_M};
+}
+
+// Give the multiplier this aircraft's features for the block's j-th tile:
+// row 16 w + 8 h + g of the tile is held by multiplier thread 32 w + 4 g + t
+// for the columns 16 kb + 8 c + 2 t, + 1, as word 4 kb + 2 c + h.
+__device__ __forceinline__ void post_inputs(const Smem& sm, Owner o, int j, float alpha_deg,
+                                            float beta_deg, float el) {
+  // pair 0 never waits for its first tile: a new barrier counts as having
+  // completed a phase of parity 1
+  const int k = j / N_PAIRS;
+  mbar_wait(sm.go + o.pair, o.pair == 0 ? (k & 1) ^ 1 : k & 1);
+  const int h = (o.row >> 3) & 1;
+  uint32_t* dst = sm.feat + h * MUL_THREADS + 32 * (o.row >> 4) + 4 * (o.row & 7);
 #pragma unroll
-  for (int k = 0; k < N_COEF; ++k)
-    c[k] = (sm.cT[k * NP_M + t] + w.b3[k]) * w.sd[k] + w.mu[k];
+  for (int kb = 0; kb < F_PAD / 16; ++kb)
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int f = 16 * kb + 8 * c + 2 * t;
+        dst[(4 * kb + 2 * c) * MUL_THREADS + t] =
+            pack_bf16(feature(f, alpha_deg, beta_deg, el),
+                      feature(f + 1, alpha_deg, beta_deg, el));
+      }
+  mbar_arrive(sm.full + o.pair);
+}
+
+// Wait for the tile (the block's j-th) and take this aircraft's raw
+// coefficients: (z + b3) * sd + mu.
+__device__ __forceinline__ void take_coefficients(const Smem& sm, Owner o, int j,
+                                                  float c[N_COEF]) {
+  mbar_wait(sm.ready + o.pair, (j / N_PAIRS) & 1);
+  const float* cr = sm.coef + o.row * N_COEF;
+#pragma unroll
+  for (int k = 0; k < N_COEF; ++k) c[k] = cr[k];
+  mbar_arrive(sm.empty);
+#pragma unroll
+  for (int k = 0; k < N_COEF; ++k) c[k] = (c[k] + sm.b3[k]) * sm.sd[k] + sm.mu[k];
+}
+
+// Blocks of a persistent launch over n aircraft: one per SM, fewer when
+// there are fewer tiles.
+inline int grid_blocks(int n) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 1;
+  }
+  const int tiles = (n + NP_M - 1) / NP_M;
+  return tiles < sms ? tiles : sms;
 }
 
 }  // namespace np_dist

@@ -1,6 +1,7 @@
 // env_step: the whole F-16 control-task env step, in two kernels that
-// share everything but the surrogate: the distilled trunk (one thread block
-// per 64 aircraft) and the 43-net ensemble (one warp per 32 aircraft).
+// share everything but the surrogate: the distilled trunk (a multiplier
+// warpgroup and 256 aircraft-owning threads per SM) and the 43-net ensemble
+// (one warp per 32 aircraft).
 //
 // Replaces the TPU kernel neuralplane_tpu/ops/step_pallas.py:env_step_pallas
 // (_step_kernel) in its distilled and its grouped mode; its task layer is
@@ -12,24 +13,26 @@
 // Box-Muller sensor noise, six terminations, reward, per-condition counts).
 // xdot, features and hidden layers never leave the chip.
 //
-// Bound. The surrogate is 207,360 FLOP per aircraft on bf16 operands; the
-// step reads ~28 floats (state 12, control 5, action 4, mask, 2 init
-// draws, 3 targets, step count) and writes ~42 (state 12, control 5,
-// observation 22, reward, 2 flags), ~0.3 KB per aircraft. At n = 10^6:
-// 2.07e11 FLOP (0.21 ms at 989 TFLOP/s dense bf16) against ~0.3 GB
-// (~0.09 ms at 3.35 TB/s): the tensor cores bound it.
+// Bound. The surrogate needs 2 * (256*68 + 256*256 + 43*324) = 193,752 FLOP
+// per aircraft on bf16 operands (the bound counts these); with the padding
+// the kernel multiplies, 2 * (256*80 + 256*256 + 48*336) = 204,288. The
+// step reads ~28 floats (state 12, control 5, action 4, mask, 2 init draws,
+// 3 targets, step count) and writes ~42 (state 12, control 5, observation
+// 22, reward, 2 flags), ~0.3 KB per aircraft. At n = 10^6: 1.94e11 FLOP
+// (0.196 ms at 989 TFLOP/s dense bf16) against ~0.3 GB (~0.09 ms at 3.35
+// TB/s): the tensor cores bound it.
 //
-// Design. Products as in nlplant_distilled.cu (distilled.cuh: mma.sync
-// bf16, weights streamed through shared memory, activations in shared
-// memory);
-// everything elementwise is one thread per aircraft in registers, with
-// feature-major state reads/writes coalesced across the block and the
-// [n, 22] observation staged through shared memory. The six counts are
-// warp ballots, then one atomicAdd per warp and condition into int32.
-// Random draws: Philox4x32-10 keyed by two seed words read from device
-// memory (no host sync per step), counter (aircraft, draw block); the
-// sensor noise (6 blocks and 12 Box-Muller pairs per aircraft) is spread
-// over all threads of the block, not only the 64 that own an aircraft.
+// Design (distilled.cuh). One persistent block per SM keeps all weights in
+// shared memory; warps 0-3 run the three products as wgmma with every
+// activation in registers; each thread of warps 4-11 owns one aircraft from
+// the reset select to the task layer, draws its own noise, and meets the
+// multiplier only through mbarriers: no block-wide barrier in the tile
+// loop. Feature-major state reads and writes are coalesced across the
+// pair's 64 threads; the [n, 22] observation row leaves as 11 8-byte stores
+// of its owner. The six counts are warp ballots, then one atomicAdd per
+// warp and condition into int32. Random draws: Philox4x32-10 keyed by two
+// seed words read from device memory (no host sync per step), counter
+// (aircraft, draw block).
 //
 // Grouped mode. The 43-net sweep (grouped.cuh) takes the trunk's place:
 // 57,620 FLOP per aircraft (0.058 ms at n = 10^6) against the same ~0.3 KB
@@ -37,8 +40,7 @@
 // reset select to the task layer and draws its own noise; the warp's
 // scratch stages the [32, 22] observation rows. Shared memory: 201,584
 // bytes a block (113,520 of weights, 5,504 of scratch for each of 16
-// warps), one persistent block per SM, against the distilled mode's
-// 107 KB and two blocks.
+// warps), one persistent block per SM.
 #include <cuda_runtime.h>
 
 #include "distilled.cuh"
@@ -229,60 +231,57 @@ __device__ __forceinline__ void add_counts(int* counts, const bool conds[6]) {
   }
 }
 
-__global__ void __launch_bounds__(NP_THREADS, 2)
-env_step_kernel(StepIO io, Weights w, StepParams p) {
+// Sensor noise of aircraft i added to its observation.
+__device__ __forceinline__ void add_noise(const StepIO& io, const StepParams& p, int i,
+                                          float obs[22]) {
+  const uint2 key = make_uint2((uint32_t)io.seed[0], (uint32_t)io.seed[1]);
+  float nz[22];
+#pragma unroll
+  for (int q = 0; q < 3; ++q) noise_item(key, (uint32_t)i, q, p.noise_scale, nz);
+#pragma unroll
+  for (int j = 0; j < 22; ++j) obs[j] = obs[j] + nz[j];
+}
+
+// The distilled mode. Warps 0-3 multiply (distilled.cuh); every thread of
+// warps 4-11 owns aircraft `row` of its pair's tile.
+template <bool HB>
+__global__ void __launch_bounds__(NP_THREADS, 1)
+env_step_kernel(StepIO io, const unsigned char* __restrict__ image, StepParams p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const Smem sm = smem_layout(smem_raw);
-  const int t = threadIdx.x;
+  const Smem sm = block_setup(smem_raw, image);
   const int n = p.n;
-  const int i0 = blockIdx.x * NP_M;
-  const int nv = min(NP_M, n - i0);
-  const int i = i0 + t;
-  const bool own = t < NP_M;       // warps 0 and 1 own one aircraft per thread
-  const bool valid = t < nv;
-
-  float s[12], u[5], tr[3];
-  int sc = 0;
-  if (own) {
-    if (valid) step_inputs(io, p, i, s, u, tr, sc);
-    else zero_inputs(s, u, tr);
-    sm.abe[3 * t + 0] = s[7] * np_f16::R2D;
-    sm.abe[3 * t + 1] = s[8] * np_f16::R2D;
-    sm.abe[3 * t + 2] = u[1];
-  }
-  __syncthreads();
-  build_features(sm);
-  __syncthreads();
-  // 3. surrogate at (post-reset s, lagged u)
-  trunk(sm, w, p.hidden_bf16 != 0);
-
-  if (p.noise_scale > 0.0f) {
-    // sensor noise, spread over all threads: one item per (aircraft, q)
-    const uint2 key = make_uint2((uint32_t)io.seed[0], (uint32_t)io.seed[1]);
-    for (int item = t; item < nv * 3; item += NP_THREADS) {
-      const int r = item / 3, q = item - 3 * r;
-      noise_item(key, (uint32_t)(i0 + r), q, p.noise_scale, sm.io + r * 22);
-    }
-    __syncthreads();
-  }
-
-  if (own) {  // warp-uniform: warps 0 and 1
-    bool conds[6] = {false, false, false, false, false, false};
-    if (valid) {
-      float c[N_COEF], obs[22];
-      coefficients(sm, w, t, c);
-      step_outputs(io, p, i, s, u, tr, sc, c, obs, conds);
-      if (p.noise_scale > 0.0f) {
+  const int tiles = (n + NP_M - 1) / NP_M;
+  if (threadIdx.x < MUL_THREADS) {
+    take_registers<MUL_REGS>();
+    multiplier_loop<HB>(sm, tiles);
+  } else {
+    give_registers<PAIR_REGS>();
+    const Owner o = owner();
+    int j = o.pair;
+    for (int tile = blockIdx.x + o.pair * gridDim.x; tile < tiles;
+         tile += N_PAIRS * gridDim.x, j += N_PAIRS) {
+      const int i = tile * NP_M + o.row;
+      const bool valid = i < n;
+      float s[12], u[5], tr[3];
+      int sc = 0;
+      if (valid) step_inputs(io, p, i, s, u, tr, sc);
+      else zero_inputs(s, u, tr);
+      // 3. surrogate at (post-reset s, lagged u)
+      post_inputs(sm, o, j, s[7] * np_f16::R2D, s[8] * np_f16::R2D, u[1]);
+      float c[N_COEF];
+      take_coefficients(sm, o, j, c);
+      bool conds[6] = {false, false, false, false, false, false};
+      if (valid) {
+        float obs[22];
+        step_outputs(io, p, i, s, u, tr, sc, c, obs, conds);
+        if (p.noise_scale > 0.0f) add_noise(io, p, i, obs);
+        float2* row = reinterpret_cast<float2*>(io.obs + (size_t)i * 22);
 #pragma unroll
-        for (int j = 0; j < 22; ++j) obs[j] = obs[j] + sm.io[t * 22 + j];
+        for (int k = 0; k < 11; ++k) row[k] = make_float2(obs[2 * k], obs[2 * k + 1]);
       }
-#pragma unroll
-      for (int j = 0; j < 22; ++j) sm.io[t * 22 + j] = obs[j];
+      add_counts(io.counts, conds);
     }
-    add_counts(io.counts, conds);
   }
-  __syncthreads();
-  for (int e = t; e < nv * 22; e += NP_THREADS) io.obs[(size_t)i0 * 22 + e] = sm.io[e];
 }
 
 // The grouped mode: the same step on the 43-net ensemble. Every lane owns
@@ -313,14 +312,7 @@ env_step_grouped_kernel(StepIO io, const uint2* __restrict__ frags,
       float c[np_grp::N_NETS];
       np_grp::coefficients(sm, c);
       step_outputs(io, p, i, s, u, tr, sc, c, obs, conds);
-      if (p.noise_scale > 0.0f) {
-        const uint2 key = make_uint2((uint32_t)io.seed[0], (uint32_t)io.seed[1]);
-        float nz[22];
-#pragma unroll
-        for (int q = 0; q < 3; ++q) noise_item(key, (uint32_t)i, q, p.noise_scale, nz);
-#pragma unroll
-        for (int j = 0; j < 22; ++j) obs[j] = obs[j] + nz[j];
-      }
+      if (p.noise_scale > 0.0f) add_noise(io, p, i, obs);
     }
     add_counts(io.counts, conds);
     __syncwarp();  // every lane has read its coefficients
@@ -357,25 +349,22 @@ static StepIO step_io(const float* sf, const float* uf, const float* act, const 
   return io;
 }
 
+// The distilled mode: `image` is DistilledAeroWeights.packed().
 int np_env_step(const float* sf, const float* uf, const float* act, const bool* mask,
                 const float* alt_init, const float* vt_init, const float* tg0,
                 const float* tg1, const float* tg2, const int* sc, const int* seed,
-                const bf16* W1, const float* b1, const bf16* W2, const float* b2,
-                const bf16* W3, const float* b3, const float* mu, const float* sd,
-                StepParams p, float* sf_out, float* uf_out, float* obs, bool* done,
-                bool* bad, float* reward, int* counts, float* tg0_out, float* tg1_out,
-                float* tg2_out, void* stream) {
+                const unsigned char* image, StepParams p, float* sf_out, float* uf_out,
+                float* obs, bool* done, bool* bad, float* reward, int* counts,
+                float* tg0_out, float* tg1_out, float* tg2_out, void* stream) {
   if (p.H != NP_H) return (int)cudaErrorInvalidValue;
-  const size_t smem = SMEM_BYTES;
+  const auto kernel = p.hidden_bf16 ? env_step_kernel<true> : env_step_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      env_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   const StepIO io = step_io(sf, uf, act, mask, alt_init, vt_init, tg0, tg1, tg2, sc, seed,
                             sf_out, uf_out, obs, done, bad, reward, counts, tg0_out,
                             tg1_out, tg2_out);
-  const Weights w{W1, b1, W2, b2, W3, b3, mu, sd};
-  const int blocks = (p.n + NP_M - 1) / NP_M;
-  env_step_kernel<<<blocks, NP_THREADS, smem, (cudaStream_t)stream>>>(io, w, p);
+  kernel<<<grid_blocks(p.n), NP_THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(io, image, p);
   return (int)cudaGetLastError();
 }
 

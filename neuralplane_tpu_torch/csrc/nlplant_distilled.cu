@@ -1,23 +1,24 @@
 // nlplant_distilled: xdot = f(s, u) for the F-16 on the distilled aero
-// surrogate, one thread block per 64 aircraft.
+// surrogate.
 //
 // Replaces the TPU kernel neuralplane_tpu/ops/aero_pallas.py:
 // nlplant_pallas_distilled (_xdot_kernel_distilled, with
 // distilled_feature_rows and distilled_coeff_rows).
 //
-// Bound. Per aircraft the trunk does 2 * (256*68 + 256*256 + 64*324) =
-// 207,360 FLOP on bf16 operands and the kernel moves 17 floats in and 12
-// out (116 B). At n = 10^6 that is 2.07e11 FLOP (0.21 ms at 989 TFLOP/s
-// dense bf16) against 1.16e8 B (0.035 ms at 3.35 TB/s): the tensor cores
-// bound it.
+// Bound. Per aircraft the trunk needs 2 * (256*68 + 256*256 + 43*324) =
+// 193,752 FLOP on bf16 operands (the bound counts these; with the padding
+// the kernel multiplies, 2 * (256*80 + 256*256 + 48*336) = 204,288) and the
+// kernel moves 17 floats in and 12 out (116 B). At n = 10^6 that is 1.94e11
+// FLOP (0.196 ms at 989 TFLOP/s dense bf16) against 1.16e8 B (0.035 ms at
+// 3.35 TB/s): the tensor cores bound it.
 //
-// Design. The three products run on tensor cores (mma.sync m16n8k16 bf16,
-// float32 accumulators in registers, distilled.cuh); features and hidden
-// layers stay in shared memory, and the weights stream from L2 through
-// shared memory in 3-stage cp.async chunks, each used for all 64 aircraft
-// of the block. The elementwise nlplant is one thread per aircraft, in
-// registers. State and control rows are staged through shared memory so
-// that the [n, 12] / [n, 5] reads and the [n, 12] write are coalesced.
+// Design (distilled.cuh). One persistent block per SM keeps all weights in
+// shared memory; warps 0-3 run the three products as wgmma with the
+// features and both hidden layers in registers; each thread of warps 4-11
+// owns one aircraft: it reads its [12] and [5] rows, hands (alpha, beta,
+// el) to the multiplier, takes back its 43 coefficients, runs nlplant in
+// registers and writes its [12] row as three 16-byte stores. The two sides
+// meet only through mbarriers.
 #include <cuda_runtime.h>
 
 #include "distilled.cuh"
@@ -25,47 +26,54 @@
 
 using namespace np_dist;
 
-__global__ void __launch_bounds__(NP_THREADS, 2)
+template <bool HB>
+__global__ void __launch_bounds__(NP_THREADS, 1)
 nlplant_distilled_kernel(const float* __restrict__ s, const float* __restrict__ u,
-                         float* __restrict__ xdot, int n, Weights w, bool hidden_bf16) {
+                         float* __restrict__ xdot, int n,
+                         const unsigned char* __restrict__ image) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const Smem sm = smem_layout(smem_raw);
-  const int t = threadIdx.x;
-  const int i0 = blockIdx.x * NP_M;
-  const int nv = min(NP_M, n - i0);  // valid aircraft in this block
-
-  // coalesced loads of the block's [nv, 12] and [nv, 5] rows
-  float* s_st = sm.io;               // [NP_M][12]
-  float* u_st = sm.io + NP_M * 12;   // [NP_M][5]
-  for (int e = t; e < nv * 12; e += NP_THREADS) s_st[e] = s[(size_t)i0 * 12 + e];
-  for (int e = t; e < nv * 5; e += NP_THREADS) u_st[e] = u[(size_t)i0 * 5 + e];
-  __syncthreads();
-
-  float sv[12], uv[5];
-  if (t < NP_M) {
-    const bool valid = t < nv;
+  const Smem sm = block_setup(smem_raw, image);
+  const int tiles = (n + NP_M - 1) / NP_M;
+  if (threadIdx.x < MUL_THREADS) {
+    take_registers<MUL_REGS>();
+    multiplier_loop<HB>(sm, tiles);
+  } else {
+    give_registers<PAIR_REGS>();
+    const Owner o = owner();
+    int j = o.pair;
+    for (int tile = blockIdx.x + o.pair * gridDim.x; tile < tiles;
+         tile += N_PAIRS * gridDim.x, j += N_PAIRS) {
+      const int i = tile * NP_M + o.row;
+      const bool valid = i < n;
+      float sv[12], uv[5];
+      if (valid) {
+        const float4* row = reinterpret_cast<const float4*>(s + (size_t)i * 12);
 #pragma unroll
-    for (int j = 0; j < 12; ++j) sv[j] = valid ? s_st[t * 12 + j] : 0.0f;
+        for (int k = 0; k < 3; ++k) {
+          const float4 v = row[k];
+          sv[4 * k] = v.x; sv[4 * k + 1] = v.y; sv[4 * k + 2] = v.z; sv[4 * k + 3] = v.w;
+        }
 #pragma unroll
-    for (int j = 0; j < 5; ++j) uv[j] = valid ? u_st[t * 5 + j] : 0.0f;
-    sm.abe[3 * t + 0] = sv[7] * np_f16::R2D;
-    sm.abe[3 * t + 1] = sv[8] * np_f16::R2D;
-    sm.abe[3 * t + 2] = uv[1];
+        for (int k = 0; k < 5; ++k) uv[k] = u[(size_t)i * 5 + k];
+      } else {  // a row past n: zeros, so that the surrogate runs on finite values
+#pragma unroll
+        for (int k = 0; k < 12; ++k) sv[k] = 0.0f;
+#pragma unroll
+        for (int k = 0; k < 5; ++k) uv[k] = 0.0f;
+      }
+      post_inputs(sm, o, j, sv[7] * np_f16::R2D, sv[8] * np_f16::R2D, uv[1]);
+      float c[N_COEF];
+      take_coefficients(sm, o, j, c);
+      if (valid) {
+        float xd[12];
+        np_f16::nlplant_core(sv, uv, c, xd);
+        float4* row = reinterpret_cast<float4*>(xdot + (size_t)i * 12);
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+          row[k] = make_float4(xd[4 * k], xd[4 * k + 1], xd[4 * k + 2], xd[4 * k + 3]);
+      }
+    }
   }
-  __syncthreads();
-  build_features(sm);
-  __syncthreads();
-  trunk(sm, w, hidden_bf16);
-
-  if (t < nv) {
-    float c[N_COEF], xd[12];
-    coefficients(sm, w, t, c);
-    np_f16::nlplant_core(sv, uv, c, xd);
-#pragma unroll
-    for (int j = 0; j < 12; ++j) s_st[t * 12 + j] = xd[j];
-  }
-  __syncthreads();
-  for (int e = t; e < nv * 12; e += NP_THREADS) xdot[(size_t)i0 * 12 + e] = s_st[e];
 }
 
 extern "C" {
@@ -74,20 +82,17 @@ const char* np_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// `image` is DistilledAeroWeights.packed().
 int np_nlplant_distilled(const float* s, const float* u, float* xdot, int n,
-                         const bf16* W1, const float* b1, const bf16* W2,
-                         const float* b2, const bf16* W3, const float* b3,
-                         const float* mu, const float* sd, int H, int hidden_bf16,
-                         void* stream) {
+                         const unsigned char* image, int H, int hidden_bf16, void* stream) {
   if (H != NP_H) return (int)cudaErrorInvalidValue;
-  const size_t smem = SMEM_BYTES;
+  const auto kernel = hidden_bf16 ? nlplant_distilled_kernel<true>
+                                  : nlplant_distilled_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      nlplant_distilled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  const Weights w{W1, b1, W2, b2, W3, b3, mu, sd};
-  const int blocks = (n + NP_M - 1) / NP_M;
-  nlplant_distilled_kernel<<<blocks, NP_THREADS, smem, (cudaStream_t)stream>>>(
-      s, u, xdot, n, w, hidden_bf16 != 0);
+  kernel<<<grid_blocks(n), NP_THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(s, u, xdot, n,
+                                                                          image);
   return (int)cudaGetLastError();
 }
 

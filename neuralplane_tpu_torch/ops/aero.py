@@ -37,9 +37,24 @@ AERO_NAMES = (
 )
 IDX = {name: i for i, name in enumerate(AERO_NAMES)}
 K = len(AERO_NAMES)
-OUT = 64      # readout rows (43 real, zero-padded)
+OUT = 64      # readout rows of the container (43 real, zero-padded)
 F_PAD = 80    # the kernels' feature width: 68 features padded to 5 x 16
 KERNEL_HIDDEN = 256  # the hidden width the CUDA kernels are built for (csrc/distilled.cuh)
+OUT_N = 48    # readout rows in the kernels' weight image: 43 padded to 6 x 8
+# Byte offsets of the distilled kernels' weight image (csrc/distilled.cuh
+# IMG_*): the three weight matrices as tensor-core B operands, then the
+# float32 vectors.
+IMG_W1 = 0
+IMG_W2 = IMG_W1 + KERNEL_HIDDEN * F_PAD * 2
+IMG_W3 = IMG_W2 + KERNEL_HIDDEN * KERNEL_HIDDEN * 2
+IMG_B3 = IMG_W3 + OUT_N * (KERNEL_HIDDEN + F_PAD) * 2
+IMG_SD = IMG_B3 + OUT_N * 4
+IMG_MU = IMG_SD + OUT_N * 4
+IMG_B1 = IMG_MU + OUT_N * 4
+IMG_B2 = IMG_B1 + KERNEL_HIDDEN * 4
+IMG_B1H = IMG_B2 + KERNEL_HIDDEN * 4   # b1, b2 rounded to bf16
+IMG_B2H = IMG_B1H + KERNEL_HIDDEN * 2
+IMG_BYTES = IMG_B2H + KERNEL_HIDDEN * 2
 
 _DATA = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -91,24 +106,45 @@ class DistilledAeroWeights:
         """float32 numpy leaves in LEAVES order (inverse of distilled_from_numpy)."""
         return tuple(t.detach().float().cpu().numpy() for t in self.leaves())
 
-    def packed(self):
-        """The kernels' layout, made once per container: W1 zero-padded to
-        [H, F_PAD]; W3 as [OUT, H + F_PAD] with the feature block padded the
-        same way; W2 and the float32 vectors as they are."""
+    def packed(self) -> torch.Tensor:
+        """The kernels' weight image, made once per container: uint8
+        [IMG_BYTES], byte for byte what a block keeps in shared memory
+        (csrc/distilled.cuh). W1 zero-padded to [H, F_PAD], W2 [H, H] and the
+        first OUT_N rows of W3 zero-padded to [OUT_N, H + F_PAD], each as
+        `core_matrix_image`; then the first OUT_N of b3, out_std, out_mean
+        and b1, b2 [H] in float32; then b1, b2 rounded to bf16, which is
+        what the hidden_bf16 mode adds."""
         if self._packed is None:
             H, F = self.W1.shape
             if H != KERNEL_HIDDEN or F != distill.N_FEAT:
                 raise ValueError(f"the CUDA kernels are built for H = {KERNEL_HIDDEN}, "
                                  f"F = {distill.N_FEAT}; got H={H}, F={F}")
-            w1p = torch.zeros(H, F_PAD, dtype=torch.bfloat16, device=self.device)
-            w1p[:, :F] = self.W1
-            w3p = torch.zeros(OUT, H + F_PAD, dtype=torch.bfloat16,
-                              device=self.device)
-            w3p[:, :H + F] = self.W3
-            self._packed = (w1p, self.b1.contiguous(), self.W2.contiguous(),
-                            self.b2.contiguous(), w3p, self.b3.contiguous(),
-                            self.out_mean.contiguous(), self.out_std.contiguous())
+            bf = torch.bfloat16
+            w1p = torch.zeros(H, F_PAD, dtype=bf)
+            w1p[:, :F] = self.W1.detach().cpu()
+            w3p = torch.zeros(OUT_N, H + F_PAD, dtype=bf)
+            w3p[:, :H + F] = self.W3.detach().cpu()[:OUT_N]
+            parts = [core_matrix_image(w) for w in (w1p, self.W2.detach().cpu(), w3p)]
+            parts += [v.detach().cpu().contiguous().view(torch.uint8)
+                      for v in (self.b3[:OUT_N], self.out_std[:OUT_N],
+                                self.out_mean[:OUT_N], self.b1, self.b2,
+                                self.b1.to(bf), self.b2.to(bf))]
+            image = torch.cat(parts)
+            assert image.numel() == IMG_BYTES
+            self._packed = image.to(self.device)
         return self._packed
+
+
+def core_matrix_image(W: torch.Tensor) -> torch.Tensor:
+    """W [N, K] (bf16, N and K multiples of 8) as the B operand of Hopper's
+    warpgroup MMA reads it from shared memory without swizzle
+    (csrc/wgmma.cuh): cut into core matrices of 8 rows x 8 columns, each 128
+    contiguous bytes (row n % 8 at byte 16 (n % 8)), ordered k block major:
+    element (n, k) sits at byte 16 N (k // 8) + 128 (n // 8) + 16 (n % 8) +
+    2 (k % 8). Returns uint8 [2 N K]."""
+    N, K = W.shape
+    tiles = W.contiguous().reshape(N // 8, 8, K // 8, 8).permute(2, 0, 1, 3)
+    return tiles.contiguous().view(torch.uint8).reshape(-1)
 
 
 def distilled_from_numpy(leaves: Sequence[np.ndarray],

@@ -54,11 +54,15 @@ def _check_inputs(w, tensors):
             raise TypeError(f"{name} must be float32, got {t.dtype}")
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# np_nlplant_distilled(s, u, xdot, n, image, H, hidden_bf16, stream)
+NLPLANT_ARGTYPES = [_P, _P, _P, _I, _P, _I, _I, _P]
+
+
 def _lib():
     lib = cuda_build.load("nlplant_distilled")
     if not getattr(lib, "_np_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.np_nlplant_distilled.argtypes = [p, p, p, i] + [p] * 8 + [i, i, p]
+        lib.np_nlplant_distilled.argtypes = NLPLANT_ARGTYPES
         lib.np_nlplant_distilled.restype = ctypes.c_int
         lib._np_typed = True
     return lib
@@ -78,14 +82,16 @@ def nlplant_distilled(w: DistilledAeroWeights, s: torch.Tensor,
     if s.device.type != "cuda":
         return nlplant_distilled_plain(w, s, u, hidden_bf16)
     s, u = s.contiguous(), u.contiguous()
+    if s.data_ptr() % 16:  # the kernel reads a state row as three float4
+        s = s.clone()
     xdot = torch.empty_like(s)
     if n == 0:
         return xdot
-    packed = w.packed()
+    image = w.packed()
     lib = _lib()
     code = lib.np_nlplant_distilled(
         s.data_ptr(), u.data_ptr(), xdot.data_ptr(), n,
-        *(t.data_ptr() for t in packed), w.hidden, int(hidden_bf16),
+        image.data_ptr(), w.hidden, int(hidden_bf16),
         torch.cuda.current_stream(s.device).cuda_stream)
     nlplant_distilled.launches += 1
     cuda_build.check(code, "nlplant_distilled", lib)

@@ -217,18 +217,20 @@ def step_params(variant: str, cfg, n: int, H: int, hidden_bf16: bool,
         dist_span=rc.get("max_dist", 0.0) - rc.get("min_dist", 0.0))
 
 
+_P = ctypes.c_void_p
+# sf uf act mask alt vt tg0 tg1 tg2 sc seed | weights | params |
+# sf' uf' obs done bad reward counts tg0' tg1' tg2' | stream; the weights
+# are the distilled image, or (frags, vec) of the 43 nets
+ENV_STEP_ARGTYPES = [_P] * 11 + [_P] + [StepParams] + [_P] * 10 + [_P]
+ENV_STEP_GROUPED_ARGTYPES = [_P] * 11 + [_P] * 2 + [StepParams] + [_P] * 10 + [_P]
+
+
 def _lib():
     lib = cuda_build.load("env_step")
     if not getattr(lib, "_np_typed", False):
-        p = ctypes.c_void_p
-        # sf uf act mask alt vt tg0 tg1 tg2 sc seed | 8 weights | params |
-        # sf' uf' obs done bad reward counts tg0' tg1' tg2' | stream
-        lib.np_env_step.argtypes = [p] * 11 + [p] * 8 + [StepParams] \
-            + [p] * 10 + [p]
+        lib.np_env_step.argtypes = ENV_STEP_ARGTYPES
         lib.np_env_step.restype = ctypes.c_int
-        # the same with (frags, vec) for the 8 weights
-        lib.np_env_step_grouped.argtypes = [p] * 11 + [p] * 2 + [StepParams] \
-            + [p] * 10 + [p]
+        lib.np_env_step_grouped.argtypes = ENV_STEP_GROUPED_ARGTYPES
         lib.np_env_step_grouped.restype = ctypes.c_int
         lib._np_typed = True
     return lib
@@ -309,12 +311,13 @@ def env_step(variant: str, cfg, w, sf: torch.Tensor,
                          float(noise_scale), reset_draws)
     if n:
         lib = _lib()
+        weights = w.packed() if grouped else (w.packed(),)
         launch = lib.np_env_step_grouped if grouped else lib.np_env_step
         code = launch(
             sf.data_ptr(), uf.data_ptr(), action4.data_ptr(), mask.data_ptr(),
             _ptr(a_init), _ptr(v_init), *(t.data_ptr() for t in tg),
             sc.data_ptr(), _ptr(noise_seed if draws else None),
-            *(t.data_ptr() for t in w.packed()), params,
+            *(t.data_ptr() for t in weights), params,
             sf_o.data_ptr(), uf_o.data_ptr(), obs.data_ptr(), done.data_ptr(),
             bad.data_ptr(), reward.data_ptr(), counts.data_ptr(),
             *(_ptr(t) for t in tg_o),

@@ -91,15 +91,134 @@ def test_load_distilled_matches_jax_loader():
         np.testing.assert_array_equal(got, np.asarray(want, np.float32))
 
 
+def image_matrix(image, offset, N, K):
+    """Read W [N, K] back out of the kernels' weight image by the layout
+    rule of csrc/wgmma.cuh, one element at a time: (n, k) sits at byte
+    16 N (k // 8) + 128 (n // 8) + 16 (n % 8) + 2 (k % 8) of the matrix.
+    Also returns how often each of the matrix's 2-byte cells was read."""
+    n, k = np.meshgrid(np.arange(N), np.arange(K), indexing="ij")
+    addr = 16 * N * (k // 8) + 128 * (n // 8) + 16 * (n % 8) + 2 * (k % 8)
+    assert (addr % 2 == 0).all()
+    cells = image[offset:offset + 2 * N * K].clone().view(torch.bfloat16)
+    hits = np.bincount((addr // 2).ravel(), minlength=N * K)
+    return cells[torch.from_numpy(addr // 2)], hits
+
+
 def test_packed_layout_pads_with_zeros():
     w = taero.load_distilled(device="cpu")
-    w1p, _, _, _, w3p, _, _, _ = w.packed()
+    image = w.packed()
+    assert w.packed() is image                            # made once
+    assert image.dtype == torch.uint8 and image.shape == (taero.IMG_BYTES,)
     H, F = w.W1.shape
-    assert w1p.shape == (H, taero.F_PAD) and w3p.shape == (taero.OUT, H + taero.F_PAD)
-    assert torch.equal(w1p[:, :F], w.W1) and not w1p[:, F:].any()
-    assert torch.equal(w3p[:, :H + F], w.W3) and not w3p[:, H + F:].any()
+    FP, ON = taero.F_PAD, taero.OUT_N
+    W1, hits = image_matrix(image, taero.IMG_W1, H, FP)
+    assert (hits == 1).all()
+    assert torch.equal(W1[:, :F], w.W1) and not W1[:, F:].any()
+    W2, hits = image_matrix(image, taero.IMG_W2, H, H)
+    assert (hits == 1).all() and torch.equal(W2, w.W2)
+    W3, hits = image_matrix(image, taero.IMG_W3, ON, H + FP)
+    assert (hits == 1).all()
+    assert torch.equal(W3[:, :H + F], w.W3[:ON]) and not W3[:, H + F:].any()
+    assert not W3[taero.K:].any()                          # rows 43..47 are padding
+    vec = lambda off, n: image[off:off + 4 * n].clone().view(torch.float32)
+    assert torch.equal(vec(taero.IMG_B1, H), w.b1)
+    assert torch.equal(vec(taero.IMG_B2, H), w.b2)
+    assert torch.equal(vec(taero.IMG_B3, ON), w.b3[:ON])
+    assert torch.equal(vec(taero.IMG_SD, ON), w.out_std[:ON])
+    assert torch.equal(vec(taero.IMG_MU, ON), w.out_mean[:ON])
+    half = lambda off, n: image[off:off + 2 * n].clone().view(torch.bfloat16)
+    assert torch.equal(half(taero.IMG_B1H, H), w.b1.to(torch.bfloat16))
+    assert torch.equal(half(taero.IMG_B2H, H), w.b2.to(torch.bfloat16))
+    assert taero.IMG_B2H + 2 * H == taero.IMG_BYTES       # nothing behind the vectors
     with pytest.raises(ValueError, match="built for H = 256"):
         port_weights(random_weights(2)).packed()
+
+
+@pytest.mark.parametrize("N,K", [(8, 8), (8, 16), (16, 8), (48, 336), (256, 80)])
+def test_core_matrix_image_holds_every_element_once(N, K):
+    """Distinct values in, the layout rule out: every element is found at
+    its address and every cell is used exactly once."""
+    # bf16 holds too few integers: the values are distinct as bit patterns
+    W = torch.arange(N * K, dtype=torch.int32).reshape(N, K).to(torch.int16) \
+        .view(torch.bfloat16)
+    image = taero.core_matrix_image(W)
+    assert image.dtype == torch.uint8 and image.shape == (2 * N * K,)
+    back, hits = image_matrix(image, 0, N, K)
+    assert (hits == 1).all()
+    assert torch.equal(back.view(torch.int16), W.view(torch.int16))
+    # a core matrix is 8 rows of 16 bytes, 128 bytes in all
+    first = image[:128].clone().view(torch.bfloat16).reshape(8, 8)
+    assert torch.equal(first.view(torch.int16), W[:8, :8].contiguous().view(torch.int16))
+
+
+def cuh_constants(name):
+    """The `constexpr int NAME = expression;` lines of a csrc header,
+    evaluated in order."""
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(aero_cuda.__file__), "..", "csrc", name)).read()
+    env = {}
+    for decl in re.findall(r"constexpr int ([^;]+);", src):
+        for part in re.split(r",\s*(?=[A-Z_0-9]+ = )", decl):
+            nm, expr = part.split(" = ")
+            env[nm.strip()] = eval(expr.replace("/", "//"), {"__builtins__": {}}, env)
+    return env
+
+
+@pytest.mark.parametrize("name", ["IMG_W1", "IMG_W2", "IMG_W3", "IMG_B1", "IMG_B2",
+                                  "IMG_B3", "IMG_SD", "IMG_MU", "IMG_B1H", "IMG_B2H",
+                                  "IMG_BYTES", "F_PAD",
+                                  "OUT_N"])
+def test_kernel_image_constants_match_the_packing(name):
+    """csrc/distilled.cuh reads the image ops/aero.py packs."""
+    assert cuh_constants("distilled.cuh")[name] == getattr(taero, name)
+
+
+def test_kernel_block_fits_the_sm():
+    """Shared memory, threads and registers of the persistent block."""
+    c = cuh_constants("distilled.cuh")
+    assert c["NP_H"] == taero.KERNEL_HIDDEN and c["N_COEF"] == taero.K
+    assert c["SMEM_COEF"] == taero.IMG_BYTES
+    assert c["FEAT_WORDS"] == taero.F_PAD // 16 * 4  # 4 words a thread per 16 columns
+    assert c["SMEM_BYTES"] == taero.IMG_BYTES + 64 * 43 * 4 \
+        + c["FEAT_WORDS"] * 128 * 4 + 8 * (3 * c["N_PAIRS"] + 1)
+    assert c["SMEM_BYTES"] <= 232448
+    assert c["SMEM_BARS"] % 8 == 0 and taero.IMG_BYTES % 16 == 0
+    owners = 64 * c["N_PAIRS"]
+    assert c["MUL_THREADS"] == 128 and c["NP_THREADS"] == 128 + owners <= 1024
+    assert owners % 128 == 0                       # whole warpgroups trade registers
+    assert c["MUL_REGS"] % 8 == 0 and c["PAIR_REGS"] % 8 == 0
+    assert 128 * c["MUL_REGS"] + owners * c["PAIR_REGS"] <= 65536
+    assert c["NP_H"] % c["NH"] == 0 and c["NH"] % 16 == 0 and c["OUT_N"] % 8 == 0
+
+
+def c_prototype(source, name):
+    """ctypes argument types of the C entry point `name` in csrc/`source`:
+    a pointer is c_void_p, an int is c_int, a struct is named."""
+    import ctypes
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(aero_cuda.__file__), "..", "csrc",
+                            source)).read()
+    params = re.search(r"\bint %s\((.*?)\)\s*\{" % name, src, re.S).group(1)
+    out = []
+    for prm in params.split(","):
+        prm = " ".join(prm.split())
+        out.append(ctypes.c_void_p if "*" in prm else
+                   ctypes.c_int if prm.startswith("int ") else prm.split()[0])
+    return out
+
+
+@pytest.mark.parametrize("source,name", [
+    ("nlplant_distilled.cu", "np_nlplant_distilled"),
+    ("env_step.cu", "np_env_step"), ("env_step.cu", "np_env_step_grouped")])
+def test_ctypes_signatures_match_the_c_entry_points(source, name):
+    from neuralplane_tpu_torch.ops import step_cuda
+    py = {"np_nlplant_distilled": aero_cuda.NLPLANT_ARGTYPES,
+          "np_env_step": step_cuda.ENV_STEP_ARGTYPES,
+          "np_env_step_grouped": step_cuda.ENV_STEP_GROUPED_ARGTYPES}[name]
+    py = [t if isinstance(t, type) and t.__module__ == "ctypes" else t.__name__ for t in py]
+    assert c_prototype(source, name) == py
 
 
 @pytest.mark.parametrize("hidden_bf16", [True, False])

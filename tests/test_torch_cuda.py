@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
-(ops/aero_grouped_cuda.py, ops/task_cuda.py, ops/step_cuda.py in both
-modes), at n = 4099 (no multiple of any tile). Every test here is marked
+(ops/aero_cuda.py, ops/aero_grouped_cuda.py, ops/task_cuda.py,
+ops/step_cuda.py in both modes), at n = 4099 (no multiple of any tile) and,
+for the distilled kernels' persistent tile loop, at ragged sizes around one
+64-aircraft tile. Every test here is marked
 `cuda` and skips without an NVIDIA GPU. The file imports no JAX, so that it
 runs where only PyTorch is installed:
 
@@ -13,6 +15,7 @@ import pytest
 import torch
 
 from neuralplane_tpu_torch.ops import aero as taero
+from neuralplane_tpu_torch.ops import aero_cuda
 from neuralplane_tpu_torch.ops import aero_grouped_cuda as tgrp
 from neuralplane_tpu_torch.ops import step_cuda, task_cuda
 from neuralplane_tpu_torch.utils.config import load_config
@@ -157,3 +160,68 @@ def test_task_step_kernel_matches_plain_on_card(variant):
     assert_kernel_close(got[0], want[0])
     assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
     assert torch.equal(got[4], want[4])
+
+
+# The distilled kernels walk over 64-aircraft tiles with one persistent block
+# per SM: one aircraft, one short of a tile, a whole tile, one over, and a
+# size that leaves most SMs without a tile (5 tiles and 3 aircraft).
+RAGGED = [1, 63, 64, 65, 64 * 5 + 3]
+
+
+def assert_rows_close(got, want, scale):
+    """As assert_kernel_close, with each column's scale taken from a larger
+    batch: a handful of rows has no RMS of its own."""
+    err = (got - want).abs().reshape(got.shape[0], -1) / scale.reshape(1, -1)
+    assert err.median() < 1e-5 and err.max() < 0.1
+    assert (err > 1e-3).float().mean() < 1e-2 or got.shape[0] < 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden_bf16", [True, False])
+@pytest.mark.parametrize("n", RAGGED)
+def test_distilled_xdot_kernel_ragged_sizes_on_card(n, hidden_bf16):
+    w = card_weights("distilled")
+    s, u = (T(x).cuda() for x in envelope(14, 4099))
+    full = aero_cuda.nlplant_distilled_plain(w, s, u, hidden_bf16)
+    scale = full.pow(2).mean(0).sqrt().clamp_min(1e-12)
+    got = aero_cuda.nlplant_distilled(w, s[:n], u[:n], hidden_bf16)
+    torch.cuda.synchronize()
+    assert got.shape == (n, 12) and torch.isfinite(got).all()
+    assert_rows_close(got, full[:n], scale)
+    # the same rows inside the larger batch give the same numbers
+    assert torch.equal(got, aero_cuda.nlplant_distilled(w, s, u, hidden_bf16)[:n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden_bf16", [True, False])
+@pytest.mark.parametrize("n", RAGGED)
+def test_distilled_step_kernel_ragged_sizes_on_card(n, hidden_bf16):
+    w = card_weights("distilled")
+    big = 4099
+    rng = np.random.default_rng(15)
+    cfg = load_config("heading")
+    s, u = envelope_states(rng, big)
+    f = lambda a: T(np.ascontiguousarray(a, np.float32)).cuda()
+    sf, uf = f(s.T), f(u.T)
+    act = f(rng.uniform(-1.2, 1.2, (big, 4)))
+    mask = T(rng.uniform(size=big) < 0.2).cuda()
+    alt0 = f(rng.uniform(cfg.min_altitude, cfg.max_altitude, big))
+    vt0 = f(rng.uniform(cfg.min_vt, cfg.max_vt, big))
+    tg = tuple(f(s[:, k] + rng.uniform(-1, 1, big)) for k in (2, 5, 6))
+    sc = T(rng.integers(0, 2600, big).astype(np.int32)).cuda()
+
+    def args(m):
+        return ("heading", cfg, w, sf[:, :m].contiguous(), uf[:, :m].contiguous(), act[:m],
+                mask[:m], alt0[:m], vt0[:m], tuple(t[:m] for t in tg), sc[:m])
+
+    full = step_cuda.env_step_plain(*args(big), hidden_bf16=hidden_bf16)
+    got = step_cuda.env_step(*args(n), hidden_bf16=hidden_bf16)
+    want = step_cuda.env_step_plain(*args(n), hidden_bf16=hidden_bf16)
+    torch.cuda.synchronize()
+    assert got[0].shape == (12, n) and got[2].shape == (n, 22)
+    rms = lambda t: t.pow(2).mean(0).sqrt().clamp_min(1e-12)
+    assert_rows_close(got[0].T, want[0].T, rms(full[0].T))
+    assert_rows_close(got[1].T, want[1].T, rms(full[1].T))
+    assert_rows_close(got[2], want[2], rms(full[2]))
+    assert (got[3] != want[3]).sum() <= 1 and (got[4] != want[4]).sum() <= 1
+    assert (got[6] - want[6]).abs().max() <= 1
