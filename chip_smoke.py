@@ -18,7 +18,10 @@ Phases, each reported on its own line:
      steps with the config's defaults (in-kernel draws and noise on);
   7. the portable branch (Euler and RK4) at a smaller n;
   8. the 43-net kernels against their plain versions: the coefficient query
-     in both output layouts, the totals, xdot in both hidden_bf16 modes;
+     in both output layouts, the totals, xdot in both hidden_bf16 modes; a
+     yardstick for the sweep (its products as torch.bmm on bf16 tensors,
+     timed here, called nowhere in the port) and the SASS instruction count
+     of one trip of each kernel's net loop where cuobjdump is present;
   9. as 4, 10. as 5, on the 43-net container (the step kernel's grouped mode);
  11. task_step against its plain version, three variants;
  12. as 6 with aero_backend="pallas": the 43-net main path;
@@ -37,6 +40,9 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -512,6 +518,45 @@ def phase_stacked(n, phase=13):
         raise Mismatch("stacked backend: fused, launched a kernel or non-finite")
 
 
+def sass_net_loops(lib_path: str, kernel: str = "grouped_kernel"):
+    """Instructions of one trip of the 43-net loop, from `cuobjdump -sass`:
+    per kernel of the library whose name holds `kernel`, the shortest
+    backward branch whose span holds tensor-core instructions, as
+    {name: (instructions, HMMA among them)}. None where there is no
+    cuobjdump."""
+    exe = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(exe):
+        return None
+    sass = subprocess.run([exe, "-sass", lib_path], capture_output=True, text=True).stdout
+    code, name = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            code[name] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and name:
+            code[name].append((int(m.group(1), 16), m.group(2)))
+    loops = {}
+    for name, ins in code.items():
+        if kernel not in name:
+            continue
+        best = None
+        for at, (addr, text) in enumerate(ins):
+            m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", text)
+            if not m or int(m.group(1), 16) > addr:
+                continue
+            span = [t for a, t in ins[:at + 1] if a >= int(m.group(1), 16)]
+            hmma = sum("HMMA" in t for t in span)
+            if hmma and (best is None or len(span) < best[0]):
+                best = (len(span), hmma)
+        if best:
+            loops[name] = best
+    return loops
+
+
 def totals_feats(s, u):
     """The feature-major [10, n] input of aero_totals from states and
     controls, as nlplant_core derives it."""
@@ -573,6 +618,50 @@ def phase_sweep(gw, n, g, dev, table, phase=8):
                            bound_by=b_by, library_ms=None)
     table["nlplant_grouped"]["ms_f32_hidden"] = cuda_ms(
         lambda: grp.nlplant_grouped(gw, s, u, hidden_bf16=False), 20)
+    log(f"phase {phase} nlplant_grouped hidden_bf16=False: kernel "
+        f"{table['nlplant_grouped']['ms_f32_hidden']:.4f} ms")
+
+
+def phase_sweep_yardstick(gw, n, dev, table, phase=8, chunk=1 << 18):
+    """The sweep's three products and its readout as library calls at the
+    main path's shapes: torch.bmm on bf16 tensors, [43, n, 3] x [43, 3, 20],
+    [43, n, 20] x [43, 20, 20], [43, n, 20] x [43, 20, 10] and
+    [43, n, 10] x [43, 10, 1], in chunks of `chunk` aircraft so that the
+    operands fit. Not the kernels' function (no bias, no ReLU, no rounding
+    points, every intermediate through device memory), so it is no
+    library_ms; timed here and called nowhere in the port."""
+    from neuralplane_tpu_torch.ops.aero import N_H1, N_H2, N_H3, N_IN
+    g = torch.Generator(device=dev).manual_seed(2)
+    bf = torch.bfloat16
+    k = gw.W1.shape[0]
+    shapes = ((N_IN, N_H1), (N_H1, N_H2), (N_H2, N_H3), (N_H3, 1))
+    ws = [torch.randn((k, i, o), generator=g, device=dev).to(bf) for i, o in shapes]
+    ms = []
+    for (i, _), wt in zip(shapes, ws):
+        xs = [torch.randn((k, min(chunk, n - at), i), generator=g, device=dev).to(bf)
+              for at in range(0, n, chunk)]
+        ms.append(cuda_ms(lambda xs=xs, wt=wt: [torch.bmm(x, wt) for x in xs], 5))
+        del xs
+    total = sum(ms)
+    log(f"phase {phase} sweep yardstick n={n}: sweep_bmm_ms {total:.4f} "
+        f"({' + '.join(f'{t:.4f}' for t in ms)}; torch.bmm on bf16, "
+        f"{' '.join(f'[43,n,{i}]x[43,{i},{o}]' for i, o in shapes)}; not the same function)")
+    for key in ("aero_coeffs_grouped[K,n]", "aero_coeffs_grouped[n,K]", "aero_totals",
+                "nlplant_grouped", "env_step_grouped"):
+        table.setdefault(key, {})["sweep_bmm_ms"] = total
+
+
+def log_sass_net_loops(phase=8):
+    """One log line per grouped kernel: the SASS instructions of one trip of
+    its net loop. Skipped where there is no cuobjdump."""
+    from neuralplane_tpu_torch.ops import cuda_build
+    for source in ("aero_grouped", "env_step"):
+        loops = sass_net_loops(cuda_build.library_path(source))
+        if loops is None:
+            return
+        for name, (count, hmma) in sorted(loops.items()):
+            log(f"phase {phase} SASS {source} {name}: {count} instructions per net and "
+                f"warp tile, {hmma} of them HMMA")
 
 
 # float32 operations of the task layer per aircraft, counted from
@@ -701,6 +790,8 @@ def main(argv=None) -> int:
 
     gw = select_aero_weights("pallas", device=dev)
     phase_sweep(gw, args.n, g, dev, table)
+    phase_sweep_yardstick(gw, args.n, dev, table)
+    log_sass_net_loops()
     phase_step(gw, args.n, g, dev, table, key="env_step_grouped", phase=9)
     phase_draws(gw, args.n, g, dev, table, key="env_step_grouped", phase=10)
     phase_task(gw, args.n, g, dev, table)

@@ -38,8 +38,8 @@
 // 57,620 FLOP per aircraft (0.058 ms at n = 10^6) against the same ~0.3 KB
 // (~0.08 ms), so the bytes bound it. Every lane owns one aircraft from the
 // reset select to the task layer and draws its own noise; the warp's
-// scratch stages the [32, 22] observation rows. Shared memory: 201,584
-// bytes a block (113,520 of weights, 5,504 of scratch for each of 16
+// scratch stages the [32, 22] observation rows. Shared memory: 215,344
+// bytes a block (127,280 of weights, 5,504 of scratch for each of 16
 // warps), one persistent block per SM.
 #include <cuda_runtime.h>
 

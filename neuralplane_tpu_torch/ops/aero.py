@@ -69,8 +69,11 @@ N_IN, N_H1, N_H2, N_H3 = 3, 20, 20, 10
 # The grouped kernels' padded widths (csrc/grouped.cuh): K of each product
 # in 8s, N in 8s.
 KP1, NP1, NP2, NP3 = 8, 24, 24, 16
-FRAG_WORDS = 18      # 32-bit words of B fragments per lane and net
-VEC_FLOATS = 84      # b1[24] b2[24] b3[16] W4[16] b4, padded to a multiple of 4
+FRAG_WORDS = 20      # 32-bit words of B fragments per lane and net
+BIAS_PAIRS = 8       # column pairs a lane adds a bias to: 3 + 3 + 2 tiles
+NET_WORDS = FRAG_WORDS * 32 + 4 * BIAS_PAIRS   # int32 words per net in `frags`
+VEC_BIAS = 4 * 2 * BIAS_PAIRS                  # float32 biases per net, [4 t][16]
+VEC_FLOATS = VEC_BIAS + 4                      # then b4, padded to a multiple of 4
 
 
 @dataclasses.dataclass(eq=False)
@@ -241,14 +244,20 @@ class GroupedAeroWeights(AeroWeights):
     def packed(self):
         """(frags, vec), made once per container (csrc/grouped.cuh reads
         them). One net is one chain of tensor-core products with K padded
-        3 -> 8 and 20 -> 16 + 8, N padded 20 -> 24 and 10 -> 16:
-        frags int32 [K, 9, 32, 2]: per net and lane 18 words of bf16 B
-        fragments - the m16n8k8 ones first (W1 tiles 0-2, rows 16-23 of W2
-        tiles 0-2 and of W3 tiles 0-1), then the m16n8k16 ones (rows 0-15
-        of W2 tiles 0-2, W3 tiles 0-1), two words each - stored as 9 pairs
-        so that a warp reads one pair per lane from consecutive addresses;
-        vec float32 [K, 84]: b1 (24), b2 (24), b3 (16), W4 rounded to bf16
-        (16), b4, zero padded."""
+        3 -> 8 and 20 -> 16 + 8, N padded 20 -> 24 and 10 -> 16, and the
+        readout one more product whose B operand holds W4 (K padded
+        10 -> 16) in each of its eight columns.
+        frags int32 [K, NET_WORDS]: per net first [10, 32, 2], per lane 20
+        words of bf16 B fragments - the m16n8k8 ones (W1 tiles 0-2, rows
+        16-23 of W2 tiles 0-2 and of W3 tiles 0-1), then the m16n8k16 ones
+        (rows 0-15 of W2 tiles 0-2, of W3 tiles 0-1, W4), two words each -
+        stored as 10 pairs so that a warp reads one pair per lane from
+        consecutive addresses; then [4, 8]: for t = lane % 4 the biases
+        rounded to bf16 of the column pairs (8 j + 2 t, 8 j + 2 t + 1) that
+        a lane holds, as bf16x2 words in the order b1 j = 0-2, b2 j = 0-2,
+        b3 j = 0-1 (two 16-byte loads).
+        vec float32 [K, VEC_FLOATS]: [4, 16] the same pairs in float32
+        (four 16-byte loads), then b4, zero padded."""
         if self._packed is None:
             bf = torch.bfloat16
             k = self.W1.shape[0]
@@ -260,6 +269,8 @@ class GroupedAeroWeights(AeroWeights):
             B2[:, :N_H1, :N_H2] = W2.to(bf)
             B3 = torch.zeros(k, NP2, NP3, dtype=bf)
             B3[:, :N_H2, :N_H3] = W3.to(bf)
+            B4 = torch.zeros(k, NP3, 8, dtype=bf)
+            B4[:, :N_H3, :] = W4.to(bf)[:, :, None]
             words = []
             for j in range(NP1 // 8):
                 words += _fragment_words(B1, 0, j, 1)
@@ -271,15 +282,22 @@ class GroupedAeroWeights(AeroWeights):
                 words += _fragment_words(B2, 0, j, 2)
             for j in range(NP3 // 8):
                 words += _fragment_words(B3, 0, j, 2)
+            words += _fragment_words(B4, 0, 0, 2)
             assert len(words) == FRAG_WORDS
             frags = torch.stack(words, dim=1).reshape(k, FRAG_WORDS // 2, 2, 32)
-            frags = frags.permute(0, 1, 3, 2).contiguous()
+            frags = frags.permute(0, 1, 3, 2).reshape(k, FRAG_WORDS * 32)
+            # the biases a lane adds, by t: columns 8 j + 2 t, + 1 of each tile
+            padded = [torch.zeros(k, n) for n in (NP1, NP2, NP3)]
+            for dst, b in zip(padded, (b1, b2, b3)):
+                dst[:, :b.shape[1]] = b
+            pairs = torch.cat([p.reshape(k, -1, 4, 2) for p in padded], dim=1)  # [K, 8, t, 2]
+            pairs = pairs.permute(0, 2, 1, 3).contiguous()                       # [K, t, 8, 2]
+            bias_words = pairs.to(bf).view(torch.int32).reshape(k, 4 * BIAS_PAIRS)
             vec = torch.zeros(k, VEC_FLOATS)
-            vec[:, 0:N_H1] = b1
-            vec[:, NP1:NP1 + N_H2] = b2
-            vec[:, NP1 + NP2:NP1 + NP2 + N_H3] = b3
-            vec[:, NP1 + NP2 + NP3:NP1 + NP2 + NP3 + N_H3] = W4.to(bf).float()
-            vec[:, NP1 + NP2 + 2 * NP3] = b4
+            vec[:, :VEC_BIAS] = pairs.reshape(k, VEC_BIAS)
+            vec[:, VEC_BIAS] = b4
+            frags = torch.cat([frags, bias_words], dim=1).contiguous()
+            assert frags.shape == (k, NET_WORDS)
             self._packed = (frags.to(self.device), vec.to(self.device))
         return self._packed
 

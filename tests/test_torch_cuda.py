@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
 (ops/aero_cuda.py, ops/aero_grouped_cuda.py, ops/task_cuda.py,
 ops/step_cuda.py in both modes), at n = 4099 (no multiple of any tile) and,
-for the distilled kernels' persistent tile loop, at ragged sizes around one
-64-aircraft tile. Every test here is marked
+for the persistent tile loops, at ragged sizes around one tile (64 aircraft
+in the distilled kernels, 32 in the 43-net ones). Every test here is marked
 `cuda` and skips without an NVIDIA GPU. The file imports no JAX, so that it
 runs where only PyTorch is installed:
 
@@ -176,27 +176,28 @@ def assert_rows_close(got, want, scale):
     assert (err > 1e-3).float().mean() < 1e-2 or got.shape[0] < 100
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("hidden_bf16", [True, False])
-@pytest.mark.parametrize("n", RAGGED)
-def test_distilled_xdot_kernel_ragged_sizes_on_card(n, hidden_bf16):
-    w = card_weights("distilled")
+def check_xdot_ragged(backend, n, hidden_bf16):
+    """The first n rows of a 4099-row batch through the xdot kernel of
+    `backend`: against the plain version, and bit for bit against the same
+    rows inside the larger batch."""
+    w = card_weights(backend)
+    kernel, plain = ((aero_cuda.nlplant_distilled, aero_cuda.nlplant_distilled_plain)
+                     if backend == "distilled" else
+                     (tgrp.nlplant_grouped, tgrp.nlplant_grouped_plain))
     s, u = (T(x).cuda() for x in envelope(14, 4099))
-    full = aero_cuda.nlplant_distilled_plain(w, s, u, hidden_bf16)
+    full = plain(w, s, u, hidden_bf16)
     scale = full.pow(2).mean(0).sqrt().clamp_min(1e-12)
-    got = aero_cuda.nlplant_distilled(w, s[:n], u[:n], hidden_bf16)
+    got = kernel(w, s[:n], u[:n], hidden_bf16)
     torch.cuda.synchronize()
     assert got.shape == (n, 12) and torch.isfinite(got).all()
     assert_rows_close(got, full[:n], scale)
-    # the same rows inside the larger batch give the same numbers
-    assert torch.equal(got, aero_cuda.nlplant_distilled(w, s, u, hidden_bf16)[:n])
+    assert torch.equal(got, kernel(w, s, u, hidden_bf16)[:n])
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("hidden_bf16", [True, False])
-@pytest.mark.parametrize("n", RAGGED)
-def test_distilled_step_kernel_ragged_sizes_on_card(n, hidden_bf16):
-    w = card_weights("distilled")
+def check_step_ragged(backend, n, hidden_bf16):
+    """The first n rows of a 4099-row batch through the step kernel in the
+    mode of `backend`, against env_step_plain on the same rows."""
+    w = card_weights(backend)
     big = 4099
     rng = np.random.default_rng(15)
     cfg = load_config("heading")
@@ -225,3 +226,70 @@ def test_distilled_step_kernel_ragged_sizes_on_card(n, hidden_bf16):
     assert_rows_close(got[2], want[2], rms(full[2]))
     assert (got[3] != want[3]).sum() <= 1 and (got[4] != want[4]).sum() <= 1
     assert (got[6] - want[6]).abs().max() <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden_bf16", [True, False])
+@pytest.mark.parametrize("n", RAGGED)
+def test_distilled_xdot_kernel_ragged_sizes_on_card(n, hidden_bf16):
+    check_xdot_ragged("distilled", n, hidden_bf16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden_bf16", [True, False])
+@pytest.mark.parametrize("n", RAGGED)
+def test_distilled_step_kernel_ragged_sizes_on_card(n, hidden_bf16):
+    check_step_ragged("distilled", n, hidden_bf16)
+
+
+# The 43-net kernels walk over 32-aircraft warp tiles, 16 warps to a
+# persistent block: one aircraft, one short of a tile, a whole tile, one
+# over, a size that leaves most warps of the one busy block idle (5 tiles and
+# 3 aircraft), and one that leaves most blocks idle (3 blocks' worth and 7).
+GROUPED_RAGGED = [1, 31, 32, 33, 32 * 5 + 3, 512 * 3 + 7]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden_bf16", [True, False])
+@pytest.mark.parametrize("n", GROUPED_RAGGED)
+def test_grouped_xdot_kernel_ragged_sizes_on_card(n, hidden_bf16):
+    check_xdot_ragged("pallas", n, hidden_bf16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden_bf16", [True, False])
+@pytest.mark.parametrize("n", GROUPED_RAGGED)
+def test_grouped_step_kernel_ragged_sizes_on_card(n, hidden_bf16):
+    check_step_ragged("pallas", n, hidden_bf16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row_major", [False, True])
+@pytest.mark.parametrize("n", GROUPED_RAGGED)
+def test_grouped_coeffs_kernel_ragged_sizes_on_card(n, row_major):
+    w = card_weights()
+    a, b, e = (T(x).cuda() for x in query_points(16, 4099))
+    full = tgrp.aero_coeffs_grouped_plain(w, a, b, e, row_major=True)       # [4099, K]
+    scale = full.pow(2).mean(0).sqrt().clamp_min(1e-12)
+    got = tgrp.aero_coeffs_grouped(w, a[:n], b[:n], e[:n], row_major=row_major)
+    torch.cuda.synchronize()
+    assert got.shape == ((n, taero.K) if row_major else (taero.K, n))
+    rows = got if row_major else got.T
+    assert torch.isfinite(rows).all()
+    assert_rows_close(rows, full[:n], scale)
+    # the same aircraft inside the larger batch, and in the other layout
+    assert torch.equal(rows, tgrp.aero_coeffs_grouped(w, a, b, e, row_major=True)[:n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", GROUPED_RAGGED)
+def test_grouped_totals_kernel_ragged_sizes_on_card(n):
+    w = card_weights()
+    feats = T(totals_feats(17, 4099)).cuda()
+    full = tgrp.aero_totals_plain(w, feats).T                                  # [4099, 6]
+    scale = full.pow(2).mean(0).sqrt().clamp_min(1e-12)
+    got = tgrp.aero_totals(w, feats[:, :n].contiguous())
+    torch.cuda.synchronize()
+    assert got.shape == (6, n) and torch.isfinite(got).all()
+    assert_rows_close(got.T, full[:n], scale)
+    assert torch.equal(got, tgrp.aero_totals(w, feats)[:, :n])

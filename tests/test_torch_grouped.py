@@ -99,13 +99,17 @@ def test_load_aero_weights_matches_jax_loader(jw):
 
 def test_packed_fragments_hold_every_weight_once(gw):
     """The kernels' layout: unpack the B fragments by the mma.sync lane
-    rule and recover the bf16 weights, zero padding elsewhere."""
+    rule and recover the bf16 weights, zero padding elsewhere; the readout's
+    fragment holds bf16 W4 in every column; the bias words are the biases
+    rounded to bf16, bit for bit, by t."""
     frags, vec = gw.packed()
     assert gw.packed()[0] is frags                       # made once
-    assert frags.shape == (taero.K, 9, 32, 2) and frags.dtype == torch.int32
-    assert vec.shape == (taero.K, taero.VEC_FLOATS)
-    words = frags.permute(0, 1, 3, 2).reshape(taero.K, 18, 32)   # [K, word, lane]
-    halves = words.contiguous().view(torch.bfloat16).reshape(taero.K, 18, 32, 2).float()
+    assert frags.shape == (taero.K, taero.NET_WORDS) and frags.dtype == torch.int32
+    assert vec.shape == (taero.K, taero.VEC_FLOATS) and vec.dtype == torch.float32
+    assert taero.NET_WORDS == 20 * 32 + 4 * 8 and taero.VEC_FLOATS == 68
+    pairs = frags[:, :taero.FRAG_WORDS * 32].reshape(taero.K, 10, 32, 2)
+    words = pairs.permute(0, 1, 3, 2).reshape(taero.K, 20, 32)   # [K, word, lane]
+    halves = words.contiguous().view(torch.bfloat16).reshape(taero.K, 20, 32, 2).float()
     lane = np.arange(32)
     g, t = lane >> 2, lane & 3
 
@@ -129,14 +133,139 @@ def test_packed_fragments_hold_every_weight_once(gw):
     B3 = np.concatenate([unpack(14, 16, 2, True), unpack(6, 8, 2, False)], axis=1)
     np.testing.assert_array_equal(B3[:, :20, :10], bf(gw.W3))
     assert not B3[:, 20:].any() and not B3[:, :, 10:].any()
-    v = vec.numpy()
-    np.testing.assert_array_equal(v[:, 0:20], gw.b1.numpy())
-    np.testing.assert_array_equal(v[:, 24:44], gw.b2.numpy())
-    np.testing.assert_array_equal(v[:, 48:58], gw.b3.numpy())
-    np.testing.assert_array_equal(v[:, 64:74], bf(gw.W4))
-    np.testing.assert_array_equal(v[:, 80], gw.b4.numpy())
-    used = np.r_[0:20, 24:44, 48:58, 64:74, 80]
-    assert not np.delete(v, used, axis=1).any()
+    B4 = unpack(18, 16, 1, True)                         # [K, 16, 8]
+    for col in range(8):
+        np.testing.assert_array_equal(B4[:, :10, col], bf(gw.W4))
+    assert not B4[:, 10:].any()
+    # bias words [K, t, 8]: b1 j = 0-2, b2 j = 0-2, b3 j = 0-1 at columns
+    # 8 j + 2 t, + 1; the float32 copies in vec in the same order
+    bias_words = frags[:, taero.FRAG_WORDS * 32:].reshape(taero.K, 4, 8)
+    bias_f32 = vec[:, :taero.VEC_BIAS].reshape(taero.K, 4, 8, 2)
+    slot = 0
+    for b, tiles in ((gw.b1, 3), (gw.b2, 3), (gw.b3, 2)):
+        padded = torch.zeros(taero.K, 8 * tiles)
+        padded[:, :b.shape[1]] = b
+        for j in range(tiles):
+            for tt in range(4):
+                want = padded[:, 8 * j + 2 * tt:8 * j + 2 * tt + 2]
+                got = bias_words[:, tt, slot].contiguous().view(torch.bfloat16)
+                assert torch.equal(got.view(torch.int16).reshape(taero.K, 2),
+                                   want.to(torch.bfloat16).view(torch.int16))
+                assert torch.equal(bias_f32[:, tt, slot], want)
+            slot += 1
+    assert slot == taero.BIAS_PAIRS
+    np.testing.assert_array_equal(vec[:, taero.VEC_BIAS].numpy(), gw.b4.numpy())
+    assert not vec[:, taero.VEC_BIAS + 1:].any()
+    # padding columns (20-23 of b1 and b2, 10-15 of b3) are zero words
+    assert not bias_words[:, 2:, 2].any() and not bias_words[:, 2:, 5].any()
+    assert not bias_words[:, 1:, 7].any()
+
+
+# --- the sweep's lane rules, in numpy ---
+
+def _bf(x):
+    """float32 values rounded to bf16 (round to nearest even), as float32."""
+    return torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16).float().numpy()
+
+
+_LANE = np.arange(32)
+_G, _T = _LANE >> 2, _LANE & 3
+
+
+def _mma(a_regs, b_regs, c):
+    """mma.sync.m16n8k8 (2 A registers, 1 B register) or m16n8k16 (4 and 2)
+    on one warp, by the PTX fragment layouts, summed in float64. A register
+    is [32 lanes, 2 bf16 values]; c and the result are [32, 4]: lane 4g + t
+    holds columns 2t, 2t + 1 of rows g (elements 0, 1) and g + 8 (2, 3)."""
+    k = 4 * len(a_regs)
+    A, B, C = np.zeros((16, k)), np.zeros((k, 8)), np.zeros((16, 8))
+    for ln, (g, t) in enumerate(zip(_G, _T)):
+        for r, reg in enumerate(a_regs):     # a0: row g, a1: row g + 8, a2, a3: columns + 8
+            A[g + 8 * (r % 2), 2 * t + 8 * (r // 2):2 * t + 8 * (r // 2) + 2] = reg[ln]
+        for r, reg in enumerate(b_regs):     # b0: rows 2t, 2t + 1 of column g, b1: rows + 8
+            B[2 * t + 8 * r:2 * t + 8 * r + 2, g] = reg[ln]
+        C[g, 2 * t:2 * t + 2], C[g + 8, 2 * t:2 * t + 2] = c[ln, :2], c[ln, 2:]
+    D = A @ B + C
+    return np.stack([D[_G, 2 * _T], D[_G, 2 * _T + 1], D[_G + 8, 2 * _T], D[_G + 8, 2 * _T + 1]],
+                    axis=1)
+
+
+def sweep_by_lane_rules(gw, alpha, beta, el, hidden_bf16):
+    """One warp tile (up to 32 aircraft) through csrc/grouped.cuh:sweep as
+    the lanes run it, from the packed buffers alone: [K, nv]."""
+    frags, vec = (x.numpy() for x in gw.packed())
+    nv = len(alpha)
+    own = 16 * (_T >> 1) + 8 * (_T & 1) + _G             # own_row() per lane
+    pad = lambda x: np.concatenate([x, np.zeros(32 - nv, np.float32)])[own]
+    a, b, e = _bf(pad(alpha)), _bf(pad(beta)), _bf(pad(el))
+    p_ab, p_e = np.stack([a, b], 1), np.stack([e, 0 * e], 1)
+    xa = [[None, None], [None, None]]
+    for m in range(2):
+        for half in range(2):
+            owner = (_LANE & ~3) | (2 * m + half)
+            xa[m][half] = np.where((_T == 0)[:, None], p_ab[owner],
+                                   np.where((_T == 1)[:, None], p_e[owner], 0.0))
+    out = np.zeros((taero.K, 32), np.float32)
+    zero = np.zeros((32, 4))
+    for k in range(taero.K):
+        pairs = frags[k, :640].reshape(10, 32, 2)
+        word = lambda i: torch.from_numpy(pairs[i // 2, :, i % 2].copy()).view(
+            torch.bfloat16).reshape(32, 2).float().numpy()
+        bias_bf = torch.from_numpy(frags[k, 640:].copy()).view(torch.bfloat16).reshape(
+            4, 8, 2).float().numpy()[_T]                  # [lane, slot, 2]
+        bias_f32 = vec[k, :64].reshape(4, 8, 2)[_T]
+
+        def hidden(acc, slot):
+            x = acc.astype(np.float32)                    # the tensor core's float32 sum
+            bias = bias_bf if hidden_bf16 else bias_f32
+            bb = np.concatenate([bias[:, slot], bias[:, slot]], axis=1)
+            if hidden_bf16:
+                x = np.maximum(_bf(_bf(x) + bb), 0.0)
+            else:
+                x = _bf(np.maximum(x + bb, 0.0))
+            return x[:, :2], x[:, 2:]                     # rows g and g + 8
+
+        h = [[None] * 6 for _ in range(2)]
+        for m in range(2):
+            for j in range(3):
+                acc = _mma(xa[m], [word(j)], zero)
+                h[m][2 * j], h[m][2 * j + 1] = hidden(acc, j)
+        for layer, tiles, k16_word, k8_word, slot0 in ((2, 3, 8, 3, 3), (3, 2, 14, 6, 6)):
+            nxt = [[None] * 6 for _ in range(2)]
+            for m in range(2):
+                for j in range(tiles):
+                    acc = _mma(h[m][:4], [word(k16_word + 2 * j), word(k16_word + 2 * j + 1)],
+                               zero)
+                    acc = _mma(h[m][4:6], [word(k8_word + j)], acc)
+                    nxt[m][2 * j], nxt[m][2 * j + 1] = hidden(acc, slot0 + j)
+            h = nxt
+        y = [_mma(h[m][:4], [word(18), word(19)], zero) for m in range(2)]
+        mine = np.where(_T < 2, y[0][_LANE, 2 * (_T & 1)], y[1][_LANE, 2 * (_T & 1)])
+        out[k, own] = mine.astype(np.float32) + vec[k, 64]
+    return out[:, :nv]
+
+
+@pytest.mark.parametrize("hidden_bf16", [True, False])
+@pytest.mark.parametrize("nv", [32, 19])
+def test_sweep_lane_rules_match_the_plain_sweep(gw, hidden_bf16, nv):
+    """The kernel cannot run without a card; its data movement can. One net
+    after the other goes from the packed buffers through the A, B and C
+    fragment layouts of m16n8k8 / m16n8k16, the layer-to-layer hand-over,
+    the readout product and the owner's select, for a whole tile and a
+    ragged one. Sums are taken in float64 here and in float32 by torch, so
+    entries agree to 2e-5 of the coefficient's scale except where a sum
+    lands on the other side of a bf16 rounding: at most 4 of the 43 x nv
+    entries may, by at most 2e-2 (the same limits as against the TPU
+    kernel)."""
+    a, b, e = query_points(21 + nv, nv)
+    got = sweep_by_lane_rules(gw, a, b, e, hidden_bf16)
+    want = tgrp.grouped_coeff_rows(gw, T(a), T(b), T(e), hidden_bf16).numpy()
+    assert got.shape == want.shape == (taero.K, nv)
+    ref = tgrp.grouped_coeff_rows(gw, *(T(x) for x in query_points(0, 700)), hidden_bf16)
+    scale = ref.abs().mean(1, keepdim=True).numpy() + 1e-6
+    err = np.abs(got - want) / scale
+    assert (err > 2e-5).sum() <= 4, f"{(err > 2e-5).sum()} entries above 2e-5"
+    assert err.max() <= 2e-2, err.max()
 
 
 @pytest.mark.parametrize("backend,cls", [
@@ -353,16 +482,25 @@ def test_task_params_match_the_c_struct():
 
 
 def test_kernel_constants_match_the_packing():
-    """csrc/grouped.cuh reads the layout ops/aero.py packs."""
-    src = open(os.path.join(os.path.dirname(step_cuda.__file__), "..", "csrc",
-                            "grouped.cuh")).read()
+    """csrc/grouped.cuh reads the layout ops/aero.py packs, through entry
+    points that take the two buffers as pointers."""
+    csrc = os.path.join(os.path.dirname(step_cuda.__file__), "..", "csrc")
+    src = open(os.path.join(csrc, "grouped.cuh")).read()
     const = lambda nm: int(re.search(r"\b%s = (\d+)" % nm, src).group(1))
     assert const("N_NETS") == taero.K
     assert const("FRAG_PAIRS") * 2 == taero.FRAG_WORDS
+    assert const("BIAS_PAIRS") == taero.BIAS_PAIRS
+    assert const("NET_WORDS") == taero.NET_WORDS
     assert const("VEC") == taero.VEC_FLOATS
-    assert (const("OFF_B2"), const("OFF_B3"), const("OFF_W4"), const("OFF_B4")) == \
-        (taero.NP1, taero.NP1 + taero.NP2, taero.NP1 + taero.NP2 + taero.NP3,
-         taero.NP1 + taero.NP2 + 2 * taero.NP3)
+    assert const("OFF_B4") == taero.VEC_BIAS
+    assert const("TILE") == 32 and const("GRP_WARPS") == 16
+    # every entry point still takes (frags, vec) as two pointers
+    for source, fn in (("aero_grouped.cu", "np_aero_coeffs"), ("aero_grouped.cu", "np_aero_totals"),
+                       ("aero_grouped.cu", "np_nlplant_grouped"),
+                       ("env_step.cu", "np_env_step_grouped")):
+        text = open(os.path.join(csrc, source)).read()
+        sig = re.search(r"int %s\((.*?)\)\s*\{" % fn, text, re.S).group(1)
+        assert "const uint2* frags" in sig and "const float* vec" in sig, fn
 
 
 # --- (g) the whole step in grouped mode ---
