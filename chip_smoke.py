@@ -27,10 +27,17 @@ Phases, each reported on its own line:
  12. as 6 with aero_backend="pallas": the 43-net main path;
  13. as 7 with aero_backend="pallas", and five steps on "stacked";
  14. the public query path on the fleet's state: ops.aero.aero_coeffs_t and
-     aero_coeffs, aero_totals, nlplant_f16 and task_step.
+     aero_coeffs, aero_totals, nlplant_f16 and task_step;
+ 15. PPO training on the card, the repo's heading run configuration (3000
+     envs, buffer 1000, distilled backend, default networks) for two
+     episodes of collect + update through F16SimRunner.run; the policy on
+     the card against the same modules on the CPU;
+ 16. the JAX package's committed heading policy
+     (results/heading/policy_checkpoint.pkl) flown by the port's eval on the
+     43-net main path, against the JAX package's own eval value.
 
-The launch counters are set to 0 just before phases 6, 7, 12, 13 and 14 and
-read just after; a kernel of the path that did not launch fails the run. Any
+The launch counters are set to 0 just before phases 6, 7, 12, 13, 14, 15 and
+16 and read just after; a kernel of the path that did not launch fails the run. Any
 mismatch, non-finite value or failed check exits non-zero. The
 second-to-last line is the kernel table as JSON, the last line the device
 record.
@@ -432,6 +439,16 @@ def phase_main(n, steps, table, backend="distilled", key="env_step", phase=6):
     return r
 
 
+def device_rows(prof):
+    """(device us, name, count) of the device's own events (kernels, copies),
+    largest first; the host ops that launched them are left out, so that no
+    time is counted twice."""
+    from torch.autograd import DeviceType
+    rows = [(e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    return sorted(rows, reverse=True)
+
+
 def profile_steps(env, st, steps: int = 20, phase: int = 6) -> None:
     """Device time by kernel over a short window of main-path steps
     (torch.profiler; after the counted run, so its launches are not counted).
@@ -446,9 +463,7 @@ def profile_steps(env, st, steps: int = 20, phase: int = 6) -> None:
             st, _ = env.step(st, a)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = [(getattr(e, "self_device_time_total", 0.0), e.key, e.count)
-            for e in prof.key_averages()]
-    rows = sorted((r for r in rows if r[0] > 0), reverse=True)
+    rows = device_rows(prof)
     busy = sum(r[0] for r in rows)
     if not rows:
         log(f"phase {phase} profile: the profiler saw no device time (not measured)")
@@ -752,11 +767,233 @@ def phase_public(r, table, phase=14):
         table[name]["launches_path"] = "public query functions on the main path's state"
 
 
+REPO = os.path.dirname(os.path.abspath(__file__))
+# The JAX package's F16SimRunner.eval of results/heading/policy_checkpoint.pkl
+# on the CPU, 1000 envs, 2500 steps, sensor noise 0.01, on the same backend as
+# phase 16: aero_backend="pallas" (the 43 nets with the fused kernels' bf16
+# rounding points, Pallas in interpret mode): the mean over the runner's first
+# five eval keys (-107.4274, -103.2024, -98.9555, -105.7008, -100.6751), by
+# `python tools/heading_eval.py --package jax --backend pallas --interpret
+# --repeats 5`. On "stacked" (float32 hidden units, the JAX package's CPU
+# default) the same policy scores ~8% higher, -95.65 / -93.40 / -97.30
+# (`--backend stacked`); the port's stacked backend gives the same.
+JAX_HEADING_EVAL = -103.19224395751954
+JAX_HEADING_EVAL_STACKED = -95.65023040771484
+EVAL_REL_LIMIT = 0.10
+# card against CPU for the same policy modules and inputs, relative to each
+# output's RMS: both are float32 throughout (TF32 off), in other summation orders
+POLICY_REL = 1e-4
+
+
+def policy_card_vs_cpu(policy, batch, rows: int = 4096, length: int = 8) -> float:
+    """The policy's actor and critic on the card and a CPU copy of the same
+    modules, on `rows` rows of a collected batch: one step and one chunk of
+    `length` steps. Returns the largest |card - cpu| / RMS(cpu) over the
+    outputs; raises above POLICY_REL."""
+    import copy
+    cpu = copy.deepcopy(policy).to("cpu")
+    obs, masks = batch.obs[:length, :rows], batch.masks[:length, :rows]
+    h_a, h_c = batch.rnn_states_actor[0, :rows], batch.rnn_states_critic[0, :rows]
+    with torch.no_grad():
+        outs = {}
+        for dev_name, pol in (("cuda", policy), ("cpu", cpu)):
+            def d(t):
+                return t.to(dev_name)
+            a_step = pol.actor.step(d(obs[0]), d(h_a), d(masks[0]))
+            c_step = pol.critic.step(d(obs[0]), d(h_c), d(masks[0]))
+            a_seq = pol.actor.seq(d(obs), d(h_a), d(masks))
+            c_seq = pol.critic.seq(d(obs), d(h_c), d(masks))
+            outs[dev_name] = {"actor_step mean": a_step[0], "actor_step h": a_step[2],
+                              "critic_step value": c_step[0], "critic_step h": c_step[1],
+                              "actor_seq mean": a_seq[0], "actor_seq h": a_seq[2],
+                              "critic_seq value": c_seq[0], "critic_seq h": c_seq[1]}
+    worst = 0.0
+    for name, want in outs["cpu"].items():
+        got = outs["cuda"][name].cpu().double()
+        want = want.double()
+        rel = float((got - want).abs().max() / want.pow(2).mean().sqrt().clamp_min(1e-12))
+        if not math.isfinite(rel) or rel > POLICY_REL:
+            raise Mismatch(f"policy {name}: card vs CPU |err|/rms {rel:.3e} "
+                           f"(limit {POLICY_REL})")
+        worst = max(worst, rel)
+    return worst
+
+
+def phase_train(episodes: int, table, phase=15):
+    """PPO training on the card at the repo's heading run configuration
+    (results/heading/REPORT.md): ControlEnv("heading", "distilled") at 3000
+    envs, buffer 1000, chunks of 8, 5 minibatches, 16 epochs, lr 3e-4,
+    entropy 1e-3, max grad norm 2, default networks; `episodes` episodes of
+    collect + update through F16SimRunner.run. The env_step counter is set
+    to 0 just before and read just after."""
+    import tempfile
+    from neuralplane_tpu_torch.algorithms.rl_config import RLConfig
+    from neuralplane_tpu_torch.envs import ControlEnv
+    from neuralplane_tpu_torch.ops import step_cuda
+    from neuralplane_tpu_torch.runner import F16SimRunner
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise Mismatch("TF32 matmuls are on: the policy is meant to run in float32")
+
+    class Timed(F16SimRunner):
+        """Collect and train timed on the host clock between synchronizations."""
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.times = {"collect": [], "train": []}
+            self.last_batch = None
+
+        def _timed(self, key, fn, *args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            self.times[key].append(time.perf_counter() - t0)
+            return out
+
+        def collect(self, carry):
+            out = self._timed("collect", super().collect, carry)
+            self.last_batch = out[1]
+            return out
+
+        def train(self, batch):
+            return self._timed("train", super().train, batch)
+
+    n, T = 3000, 1000
+    cfg = RLConfig(n_rollout_threads=n, buffer_size=T, data_chunk_length=8,
+                   num_mini_batch=5, ppo_epoch=16, lr=3e-4, gamma=0.99,
+                   entropy_coef=1e-3, max_grad_norm=2.0,
+                   num_env_steps=episodes * T * n, log_interval=1, save_interval=1)
+    env = ControlEnv(num_envs=n, config="heading", aero_backend="distilled",
+                     device="cuda")
+    with tempfile.TemporaryDirectory() as run_dir:
+        runner = Timed(env, cfg, run_dir=run_dir)
+        before = [p.detach().clone() for p in runner.policy.parameters()]
+        torch.cuda.synchronize()
+        held_mib = torch.cuda.memory_allocated() / 2 ** 20
+        torch.cuda.reset_peak_memory_stats()
+        step_cuda.env_step.launches = 0
+        try:
+            runner.run()
+        finally:
+            runner.close()
+        launches = step_cuda.env_step.launches
+        peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+        with open(os.path.join(run_dir, "metrics.jsonl"), encoding="utf-8") as f:
+            records = [json.loads(line) for line in f]
+        saved = sorted(os.listdir(runner.save_dir))
+    changed = sum(not torch.equal(a, b) for a, b in zip(before, runner.policy.parameters()))
+    for ep, (rec, c_s, t_s) in enumerate(zip(records, runner.times["collect"],
+                                             runner.times["train"])):
+        log(f"phase {phase} episode {ep}: collect {c_s * 1e3 / T:.4f} ms/step "
+            f"({c_s:.3f} s), update {t_s:.3f} s, {T * n / (c_s + t_s):.4e} "
+            f"agent-steps/s; metrics {json.dumps(rec)}")
+    rel = policy_card_vs_cpu(runner.policy, runner.last_batch)
+    c_s, t_s = runner.times["collect"][-1], runner.times["train"][-1]
+    log(f"phase {phase} PPO training ControlEnv(heading, distilled) n={n}, buffer {T}, "
+        f"{episodes} episodes: env_step launches {launches}, parameters changed "
+        f"{changed}/{len(before)}, peak device memory {peak_mib:.1f} MiB "
+        f"({held_mib:.1f} MiB of it held before the phase), "
+        f"checkpoints {saved}; policy card vs CPU (4096 rows, step and 8-step "
+        f"chunk) max |err|/rms {rel:.2e} (limit {POLICY_REL})")
+    finite = all(math.isfinite(v) for rec in records for v in rec.values())
+    if launches != episodes * T:
+        raise Mismatch(f"env_step launched {launches} times for {episodes} x {T} steps")
+    if not finite or len(records) != episodes or changed != len(before):
+        raise Mismatch("training: non-finite metric, missing record or a parameter "
+                       "that did not change")
+    table["env_step"]["launches_training"] = launches
+    profile_training(runner, phase=phase)
+
+
+def profile_calls(fn, reps: int):
+    """torch.profiler over `reps` calls of fn after one unprofiled call:
+    (device busy us, wall us, device launches, top five as text) per call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e6 / reps
+    rows = device_rows(prof)
+    busy = sum(r[0] for r in rows) / reps
+    top = "; ".join(f"{k[:36]} {t / reps:.1f} us x{c / reps:g}" for t, k, c in rows[:5])
+    return busy, wall, sum(r[2] for r in rows) / reps, top
+
+
+def profile_training(runner, phase=15, steps=20):
+    """Where a training episode's time goes, after the counted run: 20
+    collect steps, and one epoch of the update (its 5 minibatches) on the
+    last collected batch. Device busy, idle share and device launches per
+    call, from torch.profiler."""
+    carry = [runner.init_carry(runner.next_seed())]
+
+    @torch.no_grad()
+    def collect_step():
+        carry[0] = runner._collect_step(carry[0])[0]
+    cfg = runner.trainer.cfg
+    runner.trainer.cfg = cfg.replace(ppo_epoch=1)
+    try:
+        for name, fn, reps in (("collect step", collect_step, steps),
+                               ("update epoch (5 minibatches)",
+                                lambda: runner.trainer.train(runner.last_batch,
+                                                             runner.generator), 1)):
+            busy, wall, launches, top = profile_calls(fn, reps)
+            if not busy:
+                log(f"phase {phase} profile {name}: the profiler saw no device time "
+                    "(not measured)")
+                continue
+            log(f"phase {phase} profile {name}: device busy {busy:.1f} us of "
+                f"{wall:.1f} us wall, idle share {1 - busy / wall:.3f}, "
+                f"{launches:g} device launches; {top}")
+    finally:
+        runner.trainer.cfg = cfg
+
+
+def phase_fly(table, n=1000, steps=2500, phase=16):
+    """The JAX package's heading policy (results/heading/policy_checkpoint.pkl,
+    read without JAX) flown by the port: F16SimRunner.eval on
+    ControlEnv("heading", aero_backend="pallas") at n envs, sensor noise on;
+    its average episode reward within EVAL_REL_LIMIT of JAX_HEADING_EVAL."""
+    import tempfile
+    from neuralplane_tpu_torch.algorithms.rl_config import RLConfig
+    from neuralplane_tpu_torch.envs import ControlEnv
+    from neuralplane_tpu_torch.ops import step_cuda
+    from neuralplane_tpu_torch.runner import F16SimRunner
+    env = ControlEnv(num_envs=n, config="heading", aero_backend="pallas", device="cuda")
+    ckpt = os.path.join(REPO, "results", "heading", "policy_checkpoint.pkl")
+    with tempfile.TemporaryDirectory() as run_dir:
+        runner = F16SimRunner(env, RLConfig(), run_dir=run_dir, model_dir=ckpt)
+        runner.close()
+    step_cuda.env_step.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    value = runner.eval(steps)["eval_average_episode_rewards"]
+    wall = time.perf_counter() - t0
+    launches = step_cuda.env_step.launches
+    rel = abs(value - JAX_HEADING_EVAL) / abs(JAX_HEADING_EVAL)
+    log(f"phase {phase} JAX-trained heading policy flown by the port: "
+        f"eval_average_episode_rewards {value:.4f} (the JAX package on the CPU: "
+        f"pallas {JAX_HEADING_EVAL:.4f}, relative difference {rel:.4f}, limit "
+        f"{EVAL_REL_LIMIT}; stacked {JAX_HEADING_EVAL_STACKED:.4f}); n={n}, "
+        f"{steps} steps in {wall:.3f} s "
+        f"({wall * 1e3 / steps:.4f} ms/step), env_step launches {launches}, "
+        f"noise_scale {env.config.noise_scale}")
+    if launches != steps or not math.isfinite(value) or rel > EVAL_REL_LIMIT:
+        raise Mismatch("phase 16: wrong launches or the port's eval reward is more "
+                       f"than {EVAL_REL_LIMIT:.0%} away from the JAX package's")
+    table["env_step_grouped"]["launches_eval"] = launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=10 ** 6, help="aircraft per batch")
     ap.add_argument("--steps", type=int, default=200, help="timed main-path steps")
     ap.add_argument("--portable-n", type=int, default=65536)
+    ap.add_argument("--train-episodes", type=int, default=2,
+                    help="PPO episodes (collect + update) of phase 15")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs "
@@ -801,6 +1038,9 @@ def main(argv=None) -> int:
                    phase=13)
     phase_stacked(args.portable_n)
     phase_public(r, table)
+    del r
+    phase_train(args.train_episodes, table)
+    phase_fly(table)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

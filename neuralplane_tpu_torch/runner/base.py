@@ -1,0 +1,129 @@
+"""Base runner: policy, trainer and generator ownership, checkpoints and
+logging (counterpart of neuralplane_tpu/runner/base.py:24-133).
+
+Checkpoints carry the optimizer and the generator state as well as the
+weights. Metrics go to `metrics.jsonl` in the run directory (one JSON
+record per logged episode, the JAX package's scalars) and, when the
+tensorboard package is importable and asked for, to a SummaryWriter.
+
+`restore` reads the port's own checkpoints and the JAX package's pickles
+(utils/checkpoint.load_jax_pickle): a whole TrainState (`state_*.pkl`,
+`results/*/policy_checkpoint.pkl`) through `train_state_from_jax`, or an
+actor-only pickle grafted onto the fresh critic with a fresh Adam (:90-109).
+The graft checks every leaf's shape as well as the tree's names and names
+the first leaf that differs (the JAX runner checks the structure only).
+"""
+from __future__ import annotations
+
+import json
+import os
+import time
+import zipfile
+from typing import Dict, Optional
+
+import torch
+
+from ..algorithms.networks import first_mismatch, params_from_jax
+from ..algorithms.ppo import PPOPolicy, PPOTrainer, train_state_from_jax
+from ..algorithms.rl_config import RLConfig
+from ..utils.checkpoint import load_checkpoint, load_jax_pickle, save_checkpoint
+
+
+class Runner:
+    def __init__(self, env, cfg: RLConfig, run_dir: str = "runs/debug",
+                 eval_env=None, model_dir: Optional[str] = None,
+                 use_tensorboard: bool = False):
+        self.env = env
+        self.eval_env = eval_env
+        self.cfg = cfg
+        self.device = env.device
+        self.run_dir = run_dir
+        self.save_dir = os.path.join(run_dir, "checkpoints")
+        os.makedirs(self.save_dir, exist_ok=True)
+
+        self.policy, self.trainer = self._build_policy(env, cfg)
+        # every draw of the rollouts and updates: actions, epoch
+        # permutations, env seeds
+        self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        if model_dir is not None:
+            self.restore(model_dir)
+
+        self._log_file = open(os.path.join(run_dir, "metrics.jsonl"), "a")
+        self._tb = None
+        if use_tensorboard:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+                self._tb = SummaryWriter(run_dir)
+            except ImportError:
+                pass
+        self._t0 = time.time()
+
+    def _build_policy(self, env, cfg: RLConfig):
+        policy = PPOPolicy(cfg, env.num_observation, env.num_actions,
+                           act_space=getattr(env, "action_space", None),
+                           device=env.device)
+        return policy, PPOTrainer(cfg, policy)
+
+    def next_seed(self) -> int:
+        """A seed for an env reset, drawn from the runner's generator."""
+        return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=self.generator,
+                                 device=self.device))
+
+    def train(self, batch) -> Dict[str, float]:
+        metrics = self.trainer.train(batch, self.generator)
+        values = torch.stack(list(metrics.values())).tolist()   # one transfer
+        return dict(zip(metrics, values))
+
+    # ---- persistence ----
+    def save(self, tag: str = "latest") -> str:
+        path = os.path.join(self.save_dir, f"state_{tag}.pt")
+        save_checkpoint(path, {
+            "policy": self.policy.state_dict(),
+            "optimizer": self.trainer.optimizer.state_dict(),
+            "step": self.trainer.step,
+            "generator": self.generator.get_state(),
+            "generator_device": self.device.type})
+        return path
+
+    def restore(self, path: str) -> None:
+        if os.path.isdir(path):
+            path = os.path.join(path, "checkpoints", "state_latest.pt")
+        if zipfile.is_zipfile(path):   # the port's own (torch.save) format
+            blob = load_checkpoint(path)
+            self.policy.load_state_dict(blob["policy"])
+            self.trainer.optimizer.load_state_dict(blob["optimizer"])
+            self.trainer.step = blob["step"]
+            # a generator's state fits generators of its own device type only
+            if blob["generator_device"] == self.device.type:
+                self.generator.set_state(blob["generator"])
+            return
+        blob = load_jax_pickle(path)
+        if isinstance(blob, dict) and "train_state" in blob:
+            # the JAX threefry key has no torch counterpart: the generator
+            # stays as seeded
+            train_state_from_jax(blob["train_state"], self.trainer)
+            return
+        # actor-only pickle: graft the actor onto the fresh critic; critic
+        # and Adam restart, the update count at 0
+        actor = params_from_jax(blob)
+        bad = first_mismatch(actor, self.policy.actor.state_dict())
+        if bad is not None:
+            raise ValueError(f"actor-only checkpoint {path} does not match this "
+                             f"policy's actor: first difference at {bad}")
+        self.policy.actor.load_state_dict(actor)
+        self.trainer.init_state()
+
+    # ---- logging ----
+    def log_info(self, infos: Dict[str, float], total_num_steps: int) -> None:
+        rec = {"step": int(total_num_steps),
+               "wall_s": round(time.time() - self._t0, 2), **infos}
+        self._log_file.write(json.dumps(rec) + "\n")
+        self._log_file.flush()
+        if self._tb is not None:
+            for k, v in infos.items():
+                self._tb.add_scalar(k, v, total_num_steps)
+
+    def close(self) -> None:
+        self._log_file.close()
+        if self._tb is not None:
+            self._tb.close()

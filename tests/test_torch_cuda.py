@@ -2,7 +2,9 @@
 (ops/aero_cuda.py, ops/aero_grouped_cuda.py, ops/task_cuda.py,
 ops/step_cuda.py in both modes), at n = 4099 (no multiple of any tile) and,
 for the persistent tile loops, at ragged sizes around one tile (64 aircraft
-in the distilled kernels, 32 in the 43-net ones). Every test here is marked
+in the distilled kernels, 32 in the 43-net ones); and the training loop on
+the card (collects launch env_step once per step, the policy on the card
+agrees with its CPU copy). Every test here is marked
 `cuda` and skips without an NVIDIA GPU. The file imports no JAX, so that it
 runs where only PyTorch is installed:
 
@@ -293,3 +295,67 @@ def test_grouped_totals_kernel_ragged_sizes_on_card(n):
     assert got.shape == (6, n) and torch.isfinite(got).all()
     assert_rows_close(got.T, full[:n], scale)
     assert torch.equal(got, tgrp.aero_totals(w, feats)[:, :n])
+
+
+def card_runner(tmp_path, n=64, **over):
+    """A small F16SimRunner on the card (distilled backend, the fused step)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from neuralplane_tpu_torch.algorithms.rl_config import RLConfig
+    from neuralplane_tpu_torch.envs import ControlEnv
+    from neuralplane_tpu_torch.runner import F16SimRunner
+    cfg = RLConfig(buffer_size=8, data_chunk_length=8, num_mini_batch=2, ppo_epoch=2,
+                   hidden_sizes=(32, 32), act_hidden_sizes=(32,),
+                   recurrent_hidden_size=32, **over)
+    env = ControlEnv(num_envs=n, config="heading", aero_backend="distilled", device="cuda")
+    return F16SimRunner(env, cfg, run_dir=str(tmp_path))
+
+
+@pytest.mark.cuda
+def test_collect_launches_env_step_once_per_step(tmp_path):
+    """Two 8-step collects through the fused step: 16 env_step launches,
+    finite batches, and an update that changes the policy."""
+    run = card_runner(tmp_path)
+    carry = run.init_carry(run.next_seed())
+    step_cuda.env_step.launches = 0
+    for _ in range(2):
+        carry, batch, _ = run.collect(carry)
+    torch.cuda.synchronize()
+    assert step_cuda.env_step.launches == 16
+    assert batch.obs.is_cuda and torch.isfinite(batch.obs).all()
+    assert torch.isfinite(batch.value_preds).all()
+    before = run.policy.actor.mu.weight.detach().clone()
+    metrics = run.train(batch)
+    run.close()
+    assert all(np.isfinite(v) for v in metrics.values())
+    assert not torch.equal(before, run.policy.actor.mu.weight.detach())
+
+
+@pytest.mark.cuda
+def test_policy_on_card_matches_cpu(tmp_path):
+    """The phase-15 check at a small size: actor and critic on the card
+    against a CPU copy of the same modules, one step and one 8-step chunk of
+    a collected batch, within 1e-4 of each output's RMS (float32, TF32 off)."""
+    import copy
+    run = card_runner(tmp_path, n=256)
+    carry = run.init_carry(run.next_seed())
+    _, batch, _ = run.collect(carry)
+    run.close()
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cpu = copy.deepcopy(run.policy).to("cpu")
+    obs, masks = batch.obs[:8], batch.masks[:8]
+    h_a, h_c = batch.rnn_states_actor[0], batch.rnn_states_critic[0]
+    with torch.no_grad():
+        pairs = [(run.policy.actor.step(obs[0], h_a, masks[0]),
+                  cpu.actor.step(obs[0].cpu(), h_a.cpu(), masks[0].cpu())),
+                 (run.policy.critic.step(obs[0], h_c, masks[0]),
+                  cpu.critic.step(obs[0].cpu(), h_c.cpu(), masks[0].cpu())),
+                 (run.policy.actor.seq(obs, h_a, masks),
+                  cpu.actor.seq(obs.cpu(), h_a.cpu(), masks.cpu())),
+                 (run.policy.critic.seq(obs, h_c, masks),
+                  cpu.critic.seq(obs.cpu(), h_c.cpu(), masks.cpu()))]
+    for card, host in pairs:
+        for g, w in zip(card, host):
+            rel = float((g.cpu().double() - w.double()).abs().max()
+                        / w.double().pow(2).mean().sqrt().clamp_min(1e-12))
+            assert rel < 1e-4

@@ -9,11 +9,13 @@ import pytest
 import torch
 
 import neuralplane_tpu_torch
+from neuralplane_tpu_torch.algorithms.ppo import PPOPolicy
 from neuralplane_tpu_torch.envs import ControlEnv, Env
 from neuralplane_tpu_torch.measure import measure_env_step
 from neuralplane_tpu_torch.ops.aero import (load_aero_weights, load_distilled,
                                             select_aero_weights)
 from neuralplane_tpu_torch.ops.task_cuda import task_step
+from neuralplane_tpu_torch.scripts import train as train_cli
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -40,7 +42,8 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("entry", [ControlEnv, Env, load_distilled, measure_env_step,
-                                   load_aero_weights, select_aero_weights, task_step])
+                                   load_aero_weights, select_aero_weights, task_step,
+                                   PPOPolicy])
 def test_entry_points_default_to_cuda(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
 
@@ -67,3 +70,46 @@ def test_aero_backends_outside_the_port_raise():
         _, out = env.step(state, torch.zeros(4, env.num_actions))
         assert torch.isfinite(out.obs).all()
     assert neuralplane_tpu_torch.ControlEnv is ControlEnv
+
+
+def test_training_entry_points_target_cuda():
+    """The CLI's --device defaults to cuda, and the env it builds for
+    F16SimRunner (whose device is its env's) lands on the card, or fails
+    without one: no silent CPU fallback."""
+    args = train_cli.get_parser().parse_args(["--n-rollout-threads", "2"])
+    assert args.device == "cuda" and args.aero_backend == "auto"
+    if torch.cuda.is_available():
+        assert train_cli.make_env(args).device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            train_cli.make_env(args)
+
+
+LOADER_CHECK = r"""
+import sys
+from neuralplane_tpu_torch.utils.checkpoint import load_jax_pickle
+from neuralplane_tpu_torch.algorithms.rl_config import RLConfig
+from neuralplane_tpu_torch.envs import ControlEnv
+from neuralplane_tpu_torch.runner import F16SimRunner
+blob = load_jax_pickle("results/heading/policy_checkpoint.pkl")
+assert int(blob["train_state"].step) > 0
+import tempfile
+env = ControlEnv(num_envs=2, device="cpu")
+with tempfile.TemporaryDirectory() as d:
+    F16SimRunner(env, RLConfig(), run_dir=d,
+                 model_dir="results/heading/policy_checkpoint.pkl").close()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "neuralplane_tpu"))
+print(bad)
+assert not bad, bad
+"""
+
+
+def test_jax_checkpoint_loader_imports_no_jax():
+    """Reading results/heading/policy_checkpoint.pkl (a pickle of the JAX
+    package's TrainState with optax states inside) and restoring it into a
+    runner leaves jax, flax, optax and neuralplane_tpu out of sys.modules."""
+    env = {**os.environ, "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    r = subprocess.run([sys.executable, "-c", LOADER_CHECK], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
