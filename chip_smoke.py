@@ -34,10 +34,22 @@ Phases, each reported on its own line:
      the card against the same modules on the CPU;
  16. the JAX package's committed heading policy
      (results/heading/policy_checkpoint.pkl) flown by the port's eval on the
-     43-net main path, against the JAX package's own eval value.
+     43-net main path, against the JAX package's own eval value;
+ 17. PPO training of the hierarchical planning env at the repo's tracking
+     run configuration (10,000 envs, buffer 100, the committed control
+     policy as the frozen low level, distilled backend) for one episode:
+     100 launches of nlplant_distilled per high-level step, no env_step;
+     one high-level step profiled, one run under CUDA's sync debug mode;
+ 18. the JAX package's committed tracking policy flown by the port on the
+     planning env against the JAX package's eval, then one high-level step
+     with the xdot kernel against the same step with its plain version;
+ 19. the committed control, UAV and C172P policies flown by the port against
+     the JAX package's evals: env_step once per step for the control
+     policy, no kernel at all for the UAV and the C172P.
 
-The launch counters are set to 0 just before phases 6, 7, 12, 13, 14, 15 and
-16 and read just after; a kernel of the path that did not launch fails the run. Any
+The launch counters are set to 0 just before phases 6, 7, 12, 13, 14, 15,
+16, 17, 18 and each eval of 19, and read just after; a kernel of the path that
+did not launch, or one that launched off its path in 17-19, fails the run. Any
 mismatch, non-finite value or failed check exits non-zero. The
 second-to-last line is the kernel table as JSON, the last line the device
 record.
@@ -122,26 +134,29 @@ class Mismatch(AssertionError):
     pass
 
 
-def compare_cols(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+def compare_cols(name: str, got: torch.Tensor, want: torch.Tensor, limits=None) -> float:
     """Columns of got/want [n, c] (or [n]) agree when, per column and
     relative to the column's RMS: the median |got - want| is within MED_REL,
     at most FLIP_SHARE of the rows differ by more than FLIP_REL, and no row
-    by more than MAX_REL. Returns the largest absolute error; the worst
-    relative figures are kept in STATS."""
+    by more than MAX_REL (or the four of `limits`, in that order). Returns
+    the largest absolute error; the worst relative figures are kept in
+    STATS."""
+    med_rel, flip_rel, flip_share, max_rel = limits or (MED_REL, FLIP_REL, FLIP_SHARE,
+                                                        MAX_REL)
     g = got.double().reshape(got.shape[0], -1)
     w = want.double().reshape(want.shape[0], -1)
     if not torch.isfinite(g).all() or not torch.isfinite(w).all():
         raise Mismatch(f"{name}: non-finite values")
     err = (g - w).abs() / w.pow(2).mean(0).sqrt().clamp_min(1e-12)
     med = err.median(0).values.max().item()
-    share = (err > FLIP_REL).double().mean(0).max().item()
+    share = (err > flip_rel).double().mean(0).max().item()
     worst = err.max().item()
     for k, v in (("median", med), ("share", share), ("max", worst)):
         STATS[k] = max(STATS.get(k, 0.0), v)
-    if med > MED_REL or share > FLIP_SHARE or worst > MAX_REL:
-        raise Mismatch(f"{name}: |err|/rms median {med:.3e} (limit {MED_REL}), "
-                       f"share above {FLIP_REL} {share:.3e} (limit {FLIP_SHARE}), "
-                       f"max {worst:.3e} (limit {MAX_REL})")
+    if med > med_rel or share > flip_share or worst > max_rel:
+        raise Mismatch(f"{name}: |err|/rms median {med:.3e} (limit {med_rel}), "
+                       f"share above {flip_rel} {share:.3e} (limit {flip_share}), "
+                       f"max {worst:.3e} (limit {max_rel})")
     return float((g - w).abs().max())
 
 
@@ -819,24 +834,12 @@ def policy_card_vs_cpu(policy, batch, rows: int = 4096, length: int = 8) -> floa
     return worst
 
 
-def phase_train(episodes: int, table, phase=15):
-    """PPO training on the card at the repo's heading run configuration
-    (results/heading/REPORT.md): ControlEnv("heading", "distilled") at 3000
-    envs, buffer 1000, chunks of 8, 5 minibatches, 16 epochs, lr 3e-4,
-    entropy 1e-3, max grad norm 2, default networks; `episodes` episodes of
-    collect + update through F16SimRunner.run. The env_step counter is set
-    to 0 just before and read just after."""
-    import tempfile
-    from neuralplane_tpu_torch.algorithms.rl_config import RLConfig
-    from neuralplane_tpu_torch.envs import ControlEnv
-    from neuralplane_tpu_torch.ops import step_cuda
+def timed_runner():
+    """F16SimRunner with collect and train timed on the host clock between
+    synchronizations, and the last collected batch kept."""
     from neuralplane_tpu_torch.runner import F16SimRunner
-    if torch.backends.cuda.matmul.allow_tf32:
-        raise Mismatch("TF32 matmuls are on: the policy is meant to run in float32")
 
     class Timed(F16SimRunner):
-        """Collect and train timed on the host clock between synchronizations."""
-
         def __init__(self, *a, **k):
             super().__init__(*a, **k)
             self.times = {"collect": [], "train": []}
@@ -857,6 +860,22 @@ def phase_train(episodes: int, table, phase=15):
 
         def train(self, batch):
             return self._timed("train", super().train, batch)
+    return Timed
+
+
+def phase_train(episodes: int, table, phase=15):
+    """PPO training on the card at the repo's heading run configuration
+    (results/heading/REPORT.md): ControlEnv("heading", "distilled") at 3000
+    envs, buffer 1000, chunks of 8, 5 minibatches, 16 epochs, lr 3e-4,
+    entropy 1e-3, max grad norm 2, default networks; `episodes` episodes of
+    collect + update through F16SimRunner.run. The env_step counter is set
+    to 0 just before and read just after."""
+    import tempfile
+    from neuralplane_tpu_torch.algorithms.rl_config import RLConfig
+    from neuralplane_tpu_torch.envs import ControlEnv
+    from neuralplane_tpu_torch.ops import step_cuda
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise Mismatch("TF32 matmuls are on: the policy is meant to run in float32")
 
     n, T = 3000, 1000
     cfg = RLConfig(n_rollout_threads=n, buffer_size=T, data_chunk_length=8,
@@ -866,7 +885,7 @@ def phase_train(episodes: int, table, phase=15):
     env = ControlEnv(num_envs=n, config="heading", aero_backend="distilled",
                      device="cuda")
     with tempfile.TemporaryDirectory() as run_dir:
-        runner = Timed(env, cfg, run_dir=run_dir)
+        runner = timed_runner()(env, cfg, run_dir=run_dir)
         before = [p.detach().clone() for p in runner.policy.parameters()]
         torch.cuda.synchronize()
         held_mib = torch.cuda.memory_allocated() / 2 ** 20
@@ -987,6 +1006,288 @@ def phase_fly(table, n=1000, steps=2500, phase=16):
     table["env_step_grouped"]["launches_eval"] = launches
 
 
+CONTROL_CKPT = os.path.join(REPO, "results", "control", "policy_checkpoint.pkl")
+# The JAX package's F16SimRunner.eval of the other committed policies on the
+# CPU at 1000 envs, each on the backend its phase flies, with the scenario's
+# sensor noise: the mean over the runner's first five eval keys, by
+# `python tools/heading_eval.py ... --repeats 5` (commands in its docstring).
+# Each limit is 2.5 times the largest distance of one key from the mean
+# (relative), rounded up to a whole percent: the spread of one eval, as
+# phase 16's 10% was set from its 4.1%.
+# results/tracking over results/control on PlanningEnv("tracking"),
+# NEURALPLANE_AERO_BACKEND=distilled (the Pallas xdot kernel in interpret
+# mode), 50 high-level steps = one 2500-step episode:
+# keys -205.3014, -202.5016, -201.9565, -205.1751, -203.8501 (spread 0.88%)
+JAX_TRACKING_EVAL = -203.7569366455078
+TRACKING_REL_LIMIT = 0.03
+# results/control on ControlEnv("control", "distilled"), Pallas step kernel in
+# interpret mode (its draws by jax.random outside the kernel), 2500 steps:
+# keys 28.1626, 27.0842, 29.6050, 31.9263, 25.5880 (spread 12.1%: the mean
+# is small beside the per-episode rewards, so the relative spread is wide)
+JAX_CONTROL_EVAL = 28.473215866088868
+CONTROL_REL_LIMIT = 0.31
+# results/uav_tracking on ControlEnv("tracking", model="UAV"), 250 steps (the
+# airframe tumbles by construction, results/uav_tracking/REPORT.md):
+# keys -195.8235, -194.6630, -196.2977, -193.2396, -196.0540 (spread 1.01%)
+JAX_UAV_EVAL = -195.215576171875
+UAV_REL_LIMIT = 0.03
+# results/c172p_heading on ControlEnv("heading_c172p", model="C172P"), 2500 steps:
+# keys 99.7438, 102.8926, 105.5634, 103.5138, 103.4567 (spread 3.19%)
+JAX_C172P_EVAL = 103.03406219482422
+C172P_REL_LIMIT = 0.08
+# One high-level planning step with the xdot kernel against the same step
+# with its plain version (phase 18): 50 inner steps chain 100 xdot
+# evaluations through the frozen actor, so a row whose bf16 rounding flipped
+# in one evaluation (2e-4 of rows per evaluation, PERF.md section 3) carries
+# the difference on, and the float32 summation-order differences of every
+# evaluation pass through the actor 50 times. Per column, relative to its
+# RMS: the median stays at the single-call level (measured 5.75e-06, limit
+# 1e-4), while the share of rows above 1e-3 grows with the chain (measured
+# 9.1e-2 at 50 inner steps, limit 0.25) and so does the largest (measured
+# 6.07e-2, limit 0.5); the share of rows whose flags differ was 0 (limit
+# 1e-2). Measured on an H100 80GB HBM3 at 700 W, 1000 envs.
+PLAN_LIMITS = (1e-4, 1e-3, 0.25, 0.5)
+PLAN_FLAG_SHARE = 1e-2
+
+
+def kernel_counters():
+    """Every kernel wrapper of the port, by name."""
+    from neuralplane_tpu_torch.ops import aero_cuda, aero_grouped_cuda as grp
+    from neuralplane_tpu_torch.ops import step_cuda, task_cuda
+    return {"nlplant_distilled": aero_cuda.nlplant_distilled,
+            "nlplant_grouped": grp.nlplant_grouped,
+            "aero_coeffs_grouped": grp.aero_coeffs_grouped, "aero_totals": grp.aero_totals,
+            "task_step": task_cuda.task_step, "env_step": step_cuda.env_step}
+
+
+def zero_counts() -> None:
+    for k in kernel_counters().values():
+        k.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: k.launches for name, k in kernel_counters().items()}
+
+
+def check_counts(what: str, counts: dict, expected: dict) -> None:
+    """Every kernel launched exactly as `expected` says, the others never."""
+    want = {name: expected.get(name, 0) for name in counts}
+    if counts != want:
+        raise Mismatch(f"{what}: kernel launches {counts}, want {want}")
+
+
+def planning_env(n: int):
+    """PlanningEnv("tracking", "distilled") over results/control's actor, on
+    the card."""
+    from neuralplane_tpu_torch.envs import PlanningEnv
+    from neuralplane_tpu_torch.envs.planning import load_low_level_ckpt
+    return PlanningEnv(num_envs=n, config="tracking", aero_backend="distilled",
+                       low_level_params=load_low_level_ckpt(CONTROL_CKPT), device="cuda")
+
+
+def phase_planning_train(table, phase=17):
+    """PPO training of the hierarchical planning env on the card, at the
+    repo's tracking run configuration (scripts/train_tracking.sh): 10,000
+    envs, buffer 100, chunks of 10, 5 minibatches, 16 epochs, lr 3e-4,
+    entropy 1e-3, max grad norm 2, default networks, distilled backend, the
+    committed control policy as the frozen low level; one episode (the only
+    cut is the number of steps). The counters are set to 0 just before and
+    read just after: each high-level step is 2 x low_level_steps launches of
+    nlplant_distilled (update and extended_state), and env_step never."""
+    import tempfile
+    from neuralplane_tpu_torch.algorithms.rl_config import RLConfig
+    n, T = 10000, 100
+    cfg = RLConfig(n_rollout_threads=n, buffer_size=T, data_chunk_length=10,
+                   num_mini_batch=5, ppo_epoch=16, lr=3e-4, gamma=0.99, entropy_coef=1e-3,
+                   max_grad_norm=2.0, num_env_steps=T * n, log_interval=1, save_interval=1)
+    env = planning_env(n)
+    inner = env.low_level_steps
+    with tempfile.TemporaryDirectory() as run_dir:
+        runner = timed_runner()(env, cfg, run_dir=run_dir)
+        torch.cuda.synchronize()
+        held_mib = torch.cuda.memory_allocated() / 2 ** 20
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        try:
+            runner.run()
+        finally:
+            runner.close()
+        counts = read_counts()
+        peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+        with open(os.path.join(run_dir, "metrics.jsonl"), encoding="utf-8") as f:
+            records = [json.loads(line) for line in f]
+    c_s, t_s = runner.times["collect"][0], runner.times["train"][0]
+    log(f"phase {phase} planning training PlanningEnv(tracking, distilled) n={n}, buffer "
+        f"{T}, {inner} inner steps: high-level {c_s * 1e3 / T:.4f} ms/step ({c_s:.3f} s "
+        f"collect), inner {T * n * inner / c_s:.4e} FDM steps/s, update {t_s:.3f} s, "
+        f"{T * n / (c_s + t_s):.4e} training high-level agent-steps/s, peak device memory "
+        f"{peak_mib:.1f} MiB ({held_mib:.1f} MiB of it held before the phase); launches "
+        f"{counts}; metrics {json.dumps(records[0]) if records else None}")
+    check_counts("planning training", counts, {"nlplant_distilled": 2 * inner * T})
+    finite = all(math.isfinite(v) for rec in records for v in rec.values())
+    if not finite or len(records) != 1:
+        raise Mismatch("planning training: non-finite metric or missing record")
+    table["nlplant_distilled"]["launches_planning_training"] = counts["nlplant_distilled"]
+    profile_planning_step(runner, phase=phase)
+
+
+def profile_planning_step(runner, phase=17):
+    """One high-level collect step under torch.profiler (after the counted
+    run), and one env step under CUDA's sync debug mode: the inner loop must
+    not make the host wait for the card."""
+    carry = [runner.init_carry(runner.next_seed())]
+
+    @torch.no_grad()
+    def collect_step():
+        carry[0] = runner._collect_step(carry[0])[0]
+    busy, wall, launches, top = profile_calls(collect_step, 1)
+    if busy:
+        log(f"phase {phase} profile one high-level collect step: device busy {busy:.1f} us "
+            f"of {wall:.1f} us wall, idle share {1 - busy / wall:.3f}, {launches:g} device "
+            f"launches ({launches / runner.env.low_level_steps:.1f} per inner step); {top}")
+    else:
+        log(f"phase {phase} profile: the profiler saw no device time (not measured)")
+    env, c = runner.env, carry[0]
+    a = torch.zeros((env.n, env.num_actions), device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        env.step(c.env_state, a)
+    except RuntimeError as e:
+        raise Mismatch(f"the planning step synchronizes the host with the card: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log(f"phase {phase} one planning step under sync debug mode 'error': no host sync OK")
+
+
+def planning_step_vs_plain(env, policy, warm: int = 5, phase: int = 18) -> None:
+    """From a state carried through `warm` high-level steps of the policy, one
+    more high-level step with the xdot kernel and the same step with
+    nlplant_distilled's plain version on the card (same generator state,
+    same actions), compared under PLAN_LIMITS."""
+    import functools
+    from neuralplane_tpu_torch.ops import aero_cuda
+    st, obs = env.reset(11)
+    h = policy.init_rnn_states(env.n)[0]
+    masks = torch.ones((env.n, 1), device="cuda")
+    with torch.no_grad():
+        for _ in range(warm):
+            a, h = policy.act(obs, h, masks, deterministic=True)
+            st, out = env.step(st, a)
+            obs = out.obs
+        a, _ = policy.act(obs, h, masks, deterministic=True)
+    gen = env.generator.get_state()
+    got_st, got = env.step(st, a)
+    env.generator.set_state(gen)
+    env.model.dynamics = functools.partial(aero_cuda.nlplant_distilled_plain,
+                                           env.model.weights)
+    try:
+        want_st, want = env.step(st, a)
+    finally:
+        del env.model.dynamics
+    torch.cuda.synchronize()
+    STATS.clear()
+    flags = [float((getattr(got, f) != getattr(want, f)).float().mean())
+             for f in ("done", "bad_done", "exceed_time_limit")]
+    agree = (got.done == want.done) & (got.bad_done == want.bad_done)
+    pairs = (("obs", got.obs, want.obs), ("reward", got.reward[agree], want.reward[agree]),
+             ("state", got_st.env.model.s, want_st.env.model.s),
+             ("h_low", got_st.h_low.reshape(env.n, -1), want_st.h_low.reshape(env.n, -1)))
+    errs, fail = {}, None
+    for name, g, w in pairs:
+        try:
+            errs[name] = compare_cols(f"planning step {name}", g, w, PLAN_LIMITS)
+        except Mismatch as e:
+            fail = fail or e
+    log(f"phase {phase} one planning step, kernel vs plain on the card, n={env.n}, "
+        f"{env.low_level_steps} inner steps: |err|/rms median {STATS['median']:.2e} "
+        f"share above {PLAN_LIMITS[1]} {STATS['share']:.2e} max {STATS['max']:.2e} "
+        f"(limits {PLAN_LIMITS}); flag disagreement {['%.2e' % f for f in flags]} "
+        f"(limit {PLAN_FLAG_SHARE}); max_abs_err {errs}")
+    if fail is not None:
+        raise fail
+    if max(flags) > PLAN_FLAG_SHARE:
+        raise Mismatch(f"planning step: flags differ on {max(flags):.2e} of rows")
+
+
+def phase_planning_fly(table, n=1000, steps=50, phase=18):
+    """The JAX package's tracking policy (results/tracking, a Planning-env
+    policy) flown by the port over results/control's actor:
+    F16SimRunner.eval on PlanningEnv("tracking", "distilled") at n envs for
+    `steps` high-level steps (one 2500-step episode); its average episode
+    reward within TRACKING_REL_LIMIT of JAX_TRACKING_EVAL. Then one
+    high-level step, kernel against plain."""
+    import tempfile
+    from neuralplane_tpu_torch.algorithms.rl_config import RLConfig
+    from neuralplane_tpu_torch.runner import F16SimRunner
+    env = planning_env(n)
+    ckpt = os.path.join(REPO, "results", "tracking", "policy_checkpoint.pkl")
+    with tempfile.TemporaryDirectory() as run_dir:
+        runner = F16SimRunner(env, RLConfig(), run_dir=run_dir, model_dir=ckpt)
+        runner.close()
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    value = runner.eval(steps)["eval_average_episode_rewards"]
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    inner = env.low_level_steps
+    log(f"phase {phase} JAX-trained tracking policy flown by the port (PlanningEnv, "
+        f"distilled, low level results/control): eval_average_episode_rewards {value:.4f} "
+        f"(the JAX package on the CPU: {JAX_TRACKING_EVAL}, limit {TRACKING_REL_LIMIT}); "
+        f"n={n}, {steps} high-level steps ({steps * inner} FDM steps) in {wall:.3f} s "
+        f"({wall * 1e3 / steps:.4f} ms per high-level step); launches {counts}")
+    check_counts("planning eval", counts, {"nlplant_distilled": 2 * inner * steps})
+    rel = abs(value - JAX_TRACKING_EVAL) / abs(JAX_TRACKING_EVAL)
+    if not math.isfinite(value) or rel > TRACKING_REL_LIMIT:
+        raise Mismatch(f"phase {phase}: the port's tracking eval is {rel:.4f} away from the "
+                       f"JAX package's (limit {TRACKING_REL_LIMIT})")
+    table["nlplant_distilled"]["launches_planning"] = counts["nlplant_distilled"]
+    planning_step_vs_plain(env, runner.policy, phase=phase)
+
+
+def phase_policies(table, n=1000, phase=19):
+    """The other committed single-level policies flown by the port's eval,
+    each against the JAX package's on the same backend: results/control on
+    ControlEnv("control", "distilled") through env_step (one launch per
+    step), results/uav_tracking on the UAV and results/c172p_heading on the
+    C172P, which launch no kernel at all (eager by design)."""
+    import tempfile
+    from neuralplane_tpu_torch.algorithms.rl_config import RLConfig
+    from neuralplane_tpu_torch.envs import ControlEnv
+    from neuralplane_tpu_torch.runner import F16SimRunner
+    cases = (("control", "F16", "control", 2500, JAX_CONTROL_EVAL, CONTROL_REL_LIMIT),
+             ("uav_tracking", "UAV", "tracking", 250, JAX_UAV_EVAL, UAV_REL_LIMIT),
+             ("c172p_heading", "C172P", "heading_c172p", 2500, JAX_C172P_EVAL,
+              C172P_REL_LIMIT))
+    for name, model, scenario, steps, ref, limit in cases:
+        env = ControlEnv(num_envs=n, config=scenario, model=model,
+                         aero_backend="distilled", device="cuda")
+        ckpt = os.path.join(REPO, "results", name, "policy_checkpoint.pkl")
+        with tempfile.TemporaryDirectory() as run_dir:
+            runner = F16SimRunner(env, RLConfig(), run_dir=run_dir, model_dir=ckpt)
+            runner.close()
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        value = runner.eval(steps)["eval_average_episode_rewards"]
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        log(f"phase {phase} results/{name} on ControlEnv({scenario}, model={model}) flown by "
+            f"the port: eval_average_episode_rewards {value:.4f} (the JAX package on the "
+            f"CPU: {ref}, limit {limit}); n={n}, {steps} steps in {wall:.3f} s "
+            f"({wall * 1e3 / steps:.4f} ms/step), fused {env.fused}, launches {counts}, "
+            f"noise_scale {env.config.noise_scale}")
+        check_counts(f"results/{name} eval", counts,
+                     {"env_step": steps} if model == "F16" else {})
+        rel = abs(value - ref) / abs(ref)
+        if not math.isfinite(value) or rel > limit:
+            raise Mismatch(f"phase {phase}: results/{name} in the port is {rel:.4f} away "
+                           f"from the JAX package's eval (limit {limit})")
+        if model == "F16":
+            table["env_step"]["launches_control_eval"] = counts["env_step"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=10 ** 6, help="aircraft per batch")
@@ -1041,6 +1342,11 @@ def main(argv=None) -> int:
     del r
     phase_train(args.train_episodes, table)
     phase_fly(table)
+    t0 = time.perf_counter()
+    phase_planning_train(table)
+    phase_planning_fly(table)
+    phase_policies(table)
+    log(f"phases 17-19: {time.perf_counter() - t0:.1f} s wall")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,4 +1,7 @@
-from .base import ControlEnv, Env
+from .base import MODELS, ControlEnv, Env
+from .planning import PlanningEnv, PlanningState
 from .types import EnvState, StepOutput
+from .wrappers import GymVecEnv, make_control_vec_env
 
-__all__ = ["ControlEnv", "Env", "EnvState", "StepOutput"]
+__all__ = ["MODELS", "ControlEnv", "Env", "EnvState", "GymVecEnv", "PlanningEnv",
+           "PlanningState", "StepOutput", "make_control_vec_env"]

@@ -7,7 +7,12 @@ The env owns a torch.Generator on its device, seeded by `reset(seed)`; every
 random draw of the env comes from it (on the card, the step kernel's Philox
 draws are keyed by two seed words drawn from it on the device each step).
 
-`aero_backend` picks the aero surrogate (`ops/aero.select_aero_weights`):
+`model` is one of MODELS: the F-16 (aero surrogate), the UAV point mass or
+the Cessna-172P (derivative table). Only the F-16 has aero weights, so only
+its envs can fuse; the other two always run the portable branch, on eager
+tensor ops.
+
+`aero_backend` picks the F-16's aero surrogate (`ops/aero.select_aero_weights`):
 "distilled" (and "auto") the consolidated trunk, "pallas" the 43-net
 ensemble in the fused CUDA kernels (the JAX package's name for its fused
 kernels, kept so that the counterpart is found), "stacked" the same 43 nets
@@ -31,7 +36,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..models.c172p import C172PModel
 from ..models.f16 import F16Model, F16State, F16StateFM, to_fm
+from ..models.uav import UAVModel
 from ..ops.aero import (DistilledAeroWeights, GroupedAeroWeights,
                         select_aero_weights)
 from ..ops.step_cuda import env_step
@@ -41,6 +48,8 @@ from .tasks import TASKS
 from .tasks.base import add_sensor_noise
 from .types import EnvState, StepOutput
 
+MODELS = {"F16": F16Model, "UAV": UAVModel, "C172P": C172PModel}
+
 
 class Env:
     """Config + model + task bound together."""
@@ -48,24 +57,24 @@ class Env:
     def __init__(self, num_envs: int, config: str | EnvConfig = "heading",
                  task: str = "heading", model: str = "F16",
                  aero_backend: str = "auto", device="cuda"):
-        if model != "F16":
-            raise NotImplementedError(
-                f"model {model!r}: the port has the F-16 only so far (other "
-                "airframes are ROADMAP.md section 1, item 10)")
+        if model not in MODELS:
+            raise ValueError(f"model must be one of {sorted(MODELS)}, got {model!r}")
         self.device = torch.device(device)
         self.config = config if isinstance(config, EnvConfig) else load_config(config)
         self.num_envs = num_envs
         self.num_agents = self.config.num_agents
         self.n = self.num_envs * self.num_agents
-        self.model = F16Model(self.config,
-                              select_aero_weights(aero_backend, self.device))
+        weights = (select_aero_weights(aero_backend, self.device)
+                   if model == "F16" else None)
+        self.model = MODELS[model](self.config, weights)
         self.task = TASKS[task](self.config)
         self.generator: Optional[torch.Generator] = None
 
     @property
     def fused(self) -> bool:
         """Whether step() runs as the single step kernel: a fused aero
-        backend (not the stacked one) and the config's fused settings."""
+        backend (not the stacked one, and no airframe without aero weights)
+        and the config's fused settings."""
         cfg = self.config
         return (isinstance(self.model.weights,
                            (GroupedAeroWeights, DistilledAeroWeights))
@@ -187,9 +196,9 @@ class Env:
     def state_from_jax(self, jstate) -> EnvState:
         """Carry a JAX EnvState, its leaves as numpy (e.g.
         `jax.tree.map(np.asarray, state)`), into the port on this env's
-        device: model (feature-major or agent-major), targets, step count
-        and flags. The PRNG key stays behind. For tests; the runtime does
-        not use it."""
+        device: model (feature-major, or agent-major as every UAV and C172P
+        state is), targets, step count and flags. The PRNG key stays behind.
+        For tests; the runtime does not use it."""
         dev = self.device
 
         def t(a):

@@ -85,6 +85,7 @@ class F16Model:
         self.dt = config.dt
         self.solver = config.solver
         self.airspeed = config.airspeed
+        self._scales: Optional[torch.Tensor] = None
 
     def init_state(self, n: int, device) -> F16State:
         s = torch.zeros((n, self.num_states), dtype=torch.float32, device=device)
@@ -114,14 +115,21 @@ class F16Model:
     def dynamics(self, s: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         return nlplant_f16(self.weights, s, u)
 
+    def _scale(self, like: torch.Tensor) -> torch.Tensor:
+        """The action scales as a tensor on like's device, made once per
+        device: a host-to-device copy in every step would make the host
+        wait for the card."""
+        if self._scales is None or self._scales.device != like.device:
+            self._scales = torch.tensor([self.thrust_scale, *self.surface_scales],
+                                        dtype=like.dtype, device=like.device)
+        return self._scales
+
     def _lagged_controls(self, state: F16State, action: torch.Tensor) -> torch.Tensor:
         """u <- 0.9 u + 0.1 scale(action); lef pinned to 0."""
         a = torch.clamp(action, -1.0, 1.0)
         if a.shape[1] < 4:
             a = torch.cat([a, a.new_zeros((a.shape[0], 4 - a.shape[1]))], dim=1)
-        scale = torch.tensor([self.thrust_scale, *self.surface_scales],
-                             dtype=state.u.dtype, device=state.u.device)
-        u4 = 0.9 * state.u[:, :4] + 0.1 * a[:, :4] * scale
+        u4 = 0.9 * state.u[:, :4] + 0.1 * a[:, :4] * self._scale(state.u)
         return torch.cat([u4, torch.zeros_like(state.u[:, 4:5])], dim=1)
 
     def update(self, state: F16State, action: torch.Tensor) -> F16State:

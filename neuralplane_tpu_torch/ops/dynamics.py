@@ -1,5 +1,5 @@
-"""6-DOF F-16 flight dynamics: xdot = f(s, u) (counterpart of
-neuralplane_tpu/ops/dynamics.py, F-16 part).
+"""6-DOF flight dynamics of the F-16 and the UAV: xdot = f(s, u)
+(counterpart of neuralplane_tpu/ops/dynamics.py).
 
 State layout (US units):
     0 npos ft | 1 epos ft | 2 alt ft | 3 roll rad | 4 pitch rad | 5 yaw rad
@@ -145,3 +145,52 @@ def nlplant_f16(w, s: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
                       tuple(u[:, i] for i in range(5)),
                       lambda name: c[aero.IDX[name]])
     return torch.stack(xd, dim=1)
+
+
+# --- UAV (simplified rigid body, SI units; neuralplane_tpu/ops/dynamics.py:188-230) ---
+UAV_M = 300.0
+UAV_G = 9.81
+UAV_IX = UAV_IY = UAV_IZ = 1.0
+UAV_IXZ = 0.0
+UAV_LBAR = UAV_MM = UAV_NN = 1.0
+
+
+def nlplant_uav(s: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """UAV state derivative. s: [n,12] (SI: m, m/s; body-frame velocities in
+    columns 6-8), u: [n,3] body forces (N) -> xdot [n,12] in SI units. The
+    body moments are the constants UAV_LBAR, UAV_MM, UAV_NN, as in the
+    reference's model."""
+    phi, theta, psi = s[:, 3], s[:, 4], s[:, 5]
+    U, V, W = s[:, 6], s[:, 7], s[:, 8]
+    P, Q, R = s[:, 9], s[:, 10], s[:, 11]
+    Fx, Fy, Fz = u[:, 0], u[:, 1], u[:, 2]
+
+    st, ct, tt = torch.sin(theta), torch.cos(theta), torch.tan(theta)
+    sphi, cphi = torch.sin(phi), torch.cos(phi)
+    spsi, cpsi = torch.sin(psi), torch.cos(psi)
+
+    npos_dot = (U * (ct * cpsi) + V * (sphi * st * cpsi - cphi * spsi)
+                + W * (sphi * spsi + cphi * st * cpsi))
+    epos_dot = (U * (ct * spsi) + V * (sphi * st * spsi + cphi * cpsi)
+                + W * (-sphi * cpsi + cphi * st * spsi))
+    alt_dot = U * st - V * (sphi * ct) - W * (cphi * ct)
+    phi_dot = P + (R * cphi + Q * sphi) * tt
+    theta_dot = Q * cphi - R * sphi
+    psi_dot = (R * cphi + Q * sphi) / ct
+
+    U_dot = V * R - W * Q - UAV_G * st + Fx / UAV_M
+    V_dot = -U * R + W * P + UAV_G * ct * sphi + Fy / UAV_M
+    W_dot = U * Q - V * P + UAV_G * ct * cphi + Fz / UAV_M
+
+    b0 = UAV_LBAR - Q * R * (UAV_IZ - UAV_IY) + P * Q * UAV_IXZ
+    b1 = UAV_NN - P * Q * (UAV_IY - UAV_IX) - Q * R * UAV_IXZ
+    b2 = UAV_MM - P * R * (UAV_IX - UAV_IZ) - (P * P - R * R) * UAV_IXZ
+    denom = UAV_IZ * UAV_IX - UAV_IXZ ** 2
+    P_dot = (b0 * UAV_IZ + b1 * UAV_IXZ) / denom
+    Q_dot = b2 / UAV_IY
+    R_dot = (b0 * UAV_IXZ + b1 * UAV_IX) / denom
+
+    return torch.stack([
+        npos_dot, epos_dot, alt_dot, phi_dot, theta_dot, psi_dot,
+        U_dot, V_dot, W_dot, P_dot, Q_dot, R_dot,
+    ], dim=1)

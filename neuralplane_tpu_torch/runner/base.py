@@ -7,7 +7,9 @@ record per logged episode, the JAX package's scalars) and, when the
 tensorboard package is importable and asked for, to a SummaryWriter.
 
 `restore` reads the port's own checkpoints and the JAX package's pickles
-(utils/checkpoint.load_jax_pickle): a whole TrainState (`state_*.pkl`,
+(utils/checkpoint.load_jax_pickle); given a run directory, the port's
+`checkpoints/state_latest.pt` where there is one, else the JAX runner's
+`checkpoints/state_latest.pkl`. A pickle holds a whole TrainState (`state_*.pkl`,
 `results/*/policy_checkpoint.pkl`) through `train_state_from_jax`, or an
 actor-only pickle grafted onto the fresh critic with a fresh Adam (:90-109).
 The graft checks every leaf's shape as well as the tree's names and names
@@ -32,11 +34,12 @@ from ..utils.checkpoint import load_checkpoint, load_jax_pickle, save_checkpoint
 class Runner:
     def __init__(self, env, cfg: RLConfig, run_dir: str = "runs/debug",
                  eval_env=None, model_dir: Optional[str] = None,
-                 use_tensorboard: bool = False):
+                 use_tensorboard: bool = False, device=None):
         self.env = env
         self.eval_env = eval_env
         self.cfg = cfg
-        self.device = env.device
+        # the env's device unless given (a host-stepped env has none)
+        self.device = torch.device(device) if device is not None else env.device
         self.run_dir = run_dir
         self.save_dir = os.path.join(run_dir, "checkpoints")
         os.makedirs(self.save_dir, exist_ok=True)
@@ -61,7 +64,7 @@ class Runner:
     def _build_policy(self, env, cfg: RLConfig):
         policy = PPOPolicy(cfg, env.num_observation, env.num_actions,
                            act_space=getattr(env, "action_space", None),
-                           device=env.device)
+                           device=self.device)
         return policy, PPOTrainer(cfg, policy)
 
     def next_seed(self) -> int:
@@ -87,7 +90,10 @@ class Runner:
 
     def restore(self, path: str) -> None:
         if os.path.isdir(path):
+            # the port's own run directory, else the JAX runner's
             path = os.path.join(path, "checkpoints", "state_latest.pt")
+            if not os.path.exists(path):
+                path = path[:-len(".pt")] + ".pkl"
         if zipfile.is_zipfile(path):   # the port's own (torch.save) format
             blob = load_checkpoint(path)
             self.policy.load_state_dict(blob["policy"])

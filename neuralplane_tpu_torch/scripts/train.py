@@ -1,9 +1,9 @@
-"""Training CLI, the Control branch (counterpart of
+"""Training CLI, the Control and Planning branches (counterpart of
 neuralplane_tpu/scripts/train.py:1-258).
 
 The same argparse flags and `args_to_config`, so the JAX package's launch
 lines run here unchanged, plus `--device` (the reference's --cuda; default
-"cuda") and `--aero-backend` (ControlEnv's, default "auto"):
+"cuda") and `--aero-backend` (the F-16's aero surrogate, default "auto"):
 
   python -m neuralplane_tpu_torch.scripts.train --env-name Control \
       --scenario-name heading --n-rollout-threads 3000 --buffer-size 1000 \
@@ -11,10 +11,14 @@ lines run here unchanged, plus `--device` (the reference's --cuda; default
       --entropy-coef 1e-3 --max-grad-norm 2 --data-chunk-length 8 \
       --num-env-steps 1.35e9
 
-`--model-dir` resumes from the port's checkpoints and from the JAX
-package's (`state_*.pkl`, `results/*/policy_checkpoint.pkl`). What the port
-does not have yet raises NotImplementedError naming its ROADMAP.md item:
-the Planning and combat envs, self-play, MAPPO and the device mesh.
+`--env-name Planning --scenario-name tracking --low-level-ckpt
+results/control/policy_checkpoint.pkl` trains the high level of the
+hierarchical env over a frozen control policy (a JAX pickle or a port
+`.pt`); `--model-name UAV|C172P` picks the other airframes of the Control
+env. `--model-dir` resumes from the port's checkpoints and from the JAX
+package's (a run directory, `state_*.pkl`, `results/*/policy_checkpoint.pkl`).
+What the port does not have yet raises NotImplementedError naming its
+ROADMAP.md item: the combat envs, self-play, MAPPO and the device mesh.
 """
 from __future__ import annotations
 
@@ -24,12 +28,12 @@ import os
 import time
 
 from ..algorithms.rl_config import RLConfig
-from ..envs import ControlEnv
+from ..envs import ControlEnv, PlanningEnv
+from ..envs.planning import load_low_level_ckpt
 from ..runner import F16SimRunner
 
 # what the port does not have yet, by ROADMAP.md section 1 item
 _NOT_YET = {
-    "Planning": "the Planning env is ROADMAP.md section 1, item 11",
     "SingleCombat": "the combat envs are ROADMAP.md section 1, item 13",
     "SingleCombatShoot": "the shoot combat envs are ROADMAP.md section 1, item 14",
     "MultipleCombat": "the combat envs are ROADMAP.md section 1, item 13",
@@ -141,8 +145,8 @@ def get_parser() -> argparse.ArgumentParser:
                    "PyTorch version")
     p.add_argument("--aero-backend", default="auto",
                    choices=["auto", "distilled", "pallas", "stacked"],
-                   help="aero surrogate of the Control env (ControlEnv's "
-                   "aero_backend; NEURALPLANE_AERO_BACKEND overrides it)")
+                   help="aero surrogate of the F-16 (the env's aero_backend; "
+                   "NEURALPLANE_AERO_BACKEND overrides it)")
     return p
 
 
@@ -194,6 +198,11 @@ def make_env(args: argparse.Namespace, num_envs: int = None):
         return ControlEnv(num_envs=n, config=args.scenario_name,
                           model=args.model_name, aero_backend=args.aero_backend,
                           device=args.device)
+    if args.env_name == "Planning":
+        low = load_low_level_ckpt(args.low_level_ckpt) if args.low_level_ckpt else None
+        return PlanningEnv(num_envs=n, config=args.scenario_name, model=args.model_name,
+                           low_level_params=low, aero_backend=args.aero_backend,
+                           device=args.device)
     raise NotImplementedError(f"--env-name {args.env_name}: {_NOT_YET[args.env_name]}")
 
 

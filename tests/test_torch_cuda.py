@@ -359,3 +359,62 @@ def test_policy_on_card_matches_cpu(tmp_path):
             rel = float((g.cpu().double() - w.double()).abs().max()
                         / w.double().pow(2).mean().sqrt().clamp_min(1e-12))
             assert rel < 1e-4
+
+
+def planning_step_pair(n, inner=10, seed=3):
+    """One high-level step of PlanningEnv("tracking", "distilled") from a
+    carried state, with nlplant_distilled and with its plain version (same
+    generator state and actions): ((state, out) kernel, (state, out) plain,
+    kernel launches of the first)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import functools
+    import os
+    from neuralplane_tpu_torch.envs import PlanningEnv
+    from neuralplane_tpu_torch.envs.planning import load_low_level_ckpt
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = PlanningEnv(num_envs=n, config=load_config("tracking", low_level_steps=inner),
+                      aero_backend="distilled", device="cuda", low_level_params=load_low_level_ckpt(
+                          os.path.join(repo, "results", "control", "policy_checkpoint.pkl")))
+    rng = np.random.default_rng(seed)
+    st, _ = env.reset(seed)
+    st, _ = env.step(st, T(rng.uniform(-1, 1, (n, 3)).astype(np.float32)).cuda())
+    a = T(rng.uniform(-1, 1, (n, 3)).astype(np.float32)).cuda()
+    gen = env.generator.get_state()
+    aero_cuda.nlplant_distilled.launches = step_cuda.env_step.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")   # the inner loop never waits for the card
+    try:
+        got = env.step(st, a)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    launches = (aero_cuda.nlplant_distilled.launches, step_cuda.env_step.launches)
+    env.generator.set_state(gen)
+    env.model.dynamics = functools.partial(aero_cuda.nlplant_distilled_plain,
+                                           env.model.weights)
+    want = env.step(st, a)
+    torch.cuda.synchronize()
+    return got, want, launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 65, 1000])
+def test_planning_step_kernel_matches_plain_on_card(n):
+    """chip_smoke.py phase 18's check at a small size (10 inner steps): 20
+    launches of nlplant_distilled and none of env_step per high-level step,
+    no host sync; obs, state and h_low against the plain version, per column
+    relative to its RMS: median within 1e-4, at most 5% of rows above 1e-3
+    (10 chained steps; phase 18's 50 allow 25%), none above 1; flags on all
+    but 1% of rows."""
+    (gs, g), (ws, w), launches = planning_step_pair(n)
+    assert launches == (20, 0)
+    assert g.obs.shape == (n, 22) and torch.isfinite(g.obs).all()
+    assert int(gs.env.step_count.min()) >= 10 and gs.env.model.s.shape == (n, 12)
+    for got, want in ((g.obs, w.obs), (gs.env.model.s, ws.env.model.s),
+                      (gs.h_low.reshape(n, -1), ws.h_low.reshape(n, -1))):
+        scale = want.pow(2).mean(0).sqrt().clamp_min(1e-6)
+        err = (got - want).abs() / scale
+        assert err.median(0).values.max() < 1e-4 and err.max() < 1.0
+        assert (err > 1e-3).float().mean(0).max() <= max(5e-2, 1.0 / n)
+    for f in ("done", "bad_done", "exceed_time_limit"):
+        assert (getattr(g, f) != getattr(w, f)).float().mean() <= max(1e-2, 1.0 / n)

@@ -35,7 +35,20 @@ def interpret_pallas(monkeypatch):
                         lambda *a, **k: orig(*a, **{**k, "interpret": True}))
 
 
-def run_side_by_side(jenv, env, steps=4):
+def assert_state_close(got, want, rel_rms, msg):
+    """Model state at 1e-5; with rel_rms, each column's 1e-5 is scaled by
+    that column's RMS (the UAV's forces are in newtons: one float32 ulp of
+    the 27000 N scale, cancelled in the actuator lag, is 2e-3 N)."""
+    if not rel_rms:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5, err_msg=msg)
+        return
+    rms = np.sqrt((want.astype(np.float64) ** 2).mean(axis=0)) if len(want) else 0.0
+    err = np.abs(got.astype(np.float64) - want)
+    np.testing.assert_array_less(err, np.broadcast_to(1e-5 * (rms + 1.0), err.shape),
+                                 err_msg=msg)
+
+
+def run_side_by_side(jenv, env, steps=4, state_rel_rms=False):
     rng = np.random.default_rng(21)
     jstate, _ = jenv.reset(jax.random.PRNGKey(0))
     # flag a few rows so both sides go through the masked reset
@@ -56,12 +69,10 @@ def run_side_by_side(jenv, env, steps=4):
         jstate, jout = jenv.step(jstate, jnp.asarray(a))
         state, out = env.step(state, torch.from_numpy(a))
         msg = f"step {k}"
-        np.testing.assert_allclose(state.model.s.numpy()[same],
-                                   np.asarray(jstate.model.s)[same],
-                                   rtol=1e-5, atol=1e-5, err_msg=msg)
-        np.testing.assert_allclose(state.model.u.numpy()[same],
-                                   np.asarray(jstate.model.u)[same],
-                                   rtol=1e-5, atol=1e-5, err_msg=msg)
+        assert_state_close(state.model.s.numpy()[same], np.asarray(jstate.model.s)[same],
+                           state_rel_rms, msg)
+        assert_state_close(state.model.u.numpy()[same], np.asarray(jstate.model.u)[same],
+                           state_rel_rms, msg)
         np.testing.assert_allclose(out.obs.numpy()[same], np.asarray(jout.obs)[same],
                                    rtol=2e-5, atol=2e-5, err_msg=msg)
         np.testing.assert_allclose(out.reward.numpy()[same],

@@ -10,11 +10,12 @@ import torch
 
 import neuralplane_tpu_torch
 from neuralplane_tpu_torch.algorithms.ppo import PPOPolicy
-from neuralplane_tpu_torch.envs import ControlEnv, Env
+from neuralplane_tpu_torch.envs import ControlEnv, Env, PlanningEnv, make_control_vec_env
 from neuralplane_tpu_torch.measure import measure_env_step
 from neuralplane_tpu_torch.ops.aero import (load_aero_weights, load_distilled,
                                             select_aero_weights)
 from neuralplane_tpu_torch.ops.task_cuda import task_step
+from neuralplane_tpu_torch.runner import GymRunner
 from neuralplane_tpu_torch.scripts import train as train_cli
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -29,7 +30,13 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "neuralplane_tpu"))
 print(len(names), bad)
 assert not bad, bad
+print(" ".join(names))
 """
+
+# modules added with the other airframes, the planning env and the gym
+# adapters: each must be among those imported above
+NEW_MODULES = ("ops.linear_aero", "models.uav", "models.c172p", "envs.planning",
+               "envs.wrappers", "runner.gym_adapter")
 
 
 def test_port_imports_no_jax():
@@ -39,11 +46,13 @@ def test_port_imports_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
     assert n_modules >= 20, r.stdout
+    imported = set(r.stdout.splitlines()[-1].split())
+    assert {f"neuralplane_tpu_torch.{m}" for m in NEW_MODULES} <= imported, r.stdout
 
 
 @pytest.mark.parametrize("entry", [ControlEnv, Env, load_distilled, measure_env_step,
                                    load_aero_weights, select_aero_weights, task_step,
-                                   PPOPolicy])
+                                   PPOPolicy, PlanningEnv, make_control_vec_env, GymRunner])
 def test_entry_points_default_to_cuda(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
 
@@ -56,6 +65,14 @@ def test_control_env_without_device_targets_cuda():
     else:
         with pytest.raises((RuntimeError, AssertionError)):
             ControlEnv(num_envs=4)
+
+
+def test_planning_env_without_device_targets_cuda():
+    if torch.cuda.is_available():
+        assert PlanningEnv(num_envs=2).device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            PlanningEnv(num_envs=2)
 
 
 def test_aero_backends_outside_the_port_raise():

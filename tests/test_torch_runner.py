@@ -13,7 +13,11 @@
 - The committed heading checkpoint read without JAX: its actor against the
   JAX actor on fixed observations, its Adam state carried across.
 - The actor-only graft: leaf shapes checked, the first difference named.
-- The CLI on the CPU writing metrics.jsonl and checkpoints.
+- A JAX run directory (checkpoints/state_latest.pkl, written by the JAX
+  runner's own save) restored by the port.
+- The CLI on the CPU writing metrics.jsonl and checkpoints: the Control env
+  on the F-16, the UAV and the C172P, and the Planning env over the
+  committed control policy, trained and resumed from its run directory.
 """
 import json
 import os
@@ -40,6 +44,7 @@ from neuralplane_tpu_torch.utils.config import load_config
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HEADING = os.path.join(REPO, "results", "heading", "policy_checkpoint.pkl")
+CONTROL = os.path.join(REPO, "results", "control", "policy_checkpoint.pkl")
 NET = dict(buffer_size=8, data_chunk_length=4, hidden_sizes=(16,),
            act_hidden_sizes=(8,), recurrent_hidden_size=8, n_rollout_threads=8)
 
@@ -219,6 +224,24 @@ def test_actor_only_graft_checks_leaf_shapes(tmp_path, heading_blob):
         F16SimRunner(env, RLConfig(), run_dir=str(tmp_path / "c"), model_dir=str(bad))
 
 
+def test_restore_reads_a_jax_run_directory(tmp_path):
+    """--model-dir <JAX run dir>: with no state_latest.pt there, restore reads
+    the JAX runner's checkpoints/state_latest.pkl (its own save): the
+    parameters, Adam's moments and the update count come across."""
+    jenv = JaxControlEnv(num_envs=2, config="heading", aero_backend="stacked")
+    jrun = JF16SimRunner(jenv, JRLConfig(**NET), run_dir=str(tmp_path / "jax"))
+    path = jrun.save("latest")
+    assert path.endswith(os.path.join("checkpoints", "state_latest.pkl"))
+    env = ControlEnv(num_envs=2, config="heading", device="cpu")
+    run = F16SimRunner(env, RLConfig(**NET), run_dir=str(tmp_path / "port"),
+                       model_dir=str(tmp_path / "jax"))
+    run.close()
+    want = params_from_jax(to_np(jrun.train_state.params))
+    for name, value in run.policy.state_dict().items():
+        np.testing.assert_array_equal(value.numpy(), want[name].numpy(), err_msg=name)
+    assert run.trainer.step == int(jrun.train_state.step)
+
+
 def test_jax_loader_refuses_other_globals(tmp_path):
     path = tmp_path / "evil.pkl"
     with open(path, "wb") as f:
@@ -245,9 +268,43 @@ def test_cli_trains_on_cpu(tmp_path):
     assert (tmp_path / "run2" / "checkpoints" / "state_latest.pt").exists()
 
 
+@pytest.mark.parametrize("model,scenario", [("UAV", "tracking"),
+                                            ("C172P", "heading_c172p")])
+def test_cli_trains_other_airframes_on_cpu(tmp_path, model, scenario):
+    args = [a for a in CLI]
+    args[args.index("--scenario-name") + 1] = scenario
+    train_cli.main(args + ["--model-name", model, "--run-dir", str(tmp_path / "run")])
+    recs = read_jsonl(tmp_path / "run" / "metrics.jsonl")
+    assert len(recs) == 2 and all(np.isfinite(r["policy_loss"]) for r in recs)
+    assert all(np.isfinite(r["average_episode_rewards"]) for r in recs)
+
+
+def test_cli_trains_planning_on_cpu(tmp_path):
+    """--env-name Planning over the committed control policy: 4 envs, buffer
+    10, 2 inner steps per high-level step (a scenario file that cuts
+    low_level_steps), one episode; then resumed from the run directory."""
+    scenario = tmp_path / "tracking.yaml"
+    with open(os.path.join(REPO, "neuralplane_tpu", "configs", "tracking.yaml"),
+              encoding="utf-8") as f:
+        scenario.write_text(f.read() + "\nlow_level_steps: 2\n")
+    args = ["--env-name", "Planning", "--scenario-name", str(scenario),
+            "--low-level-ckpt", CONTROL, "--n-rollout-threads", "4", "--buffer-size", "10",
+            "--data-chunk-length", "5", "--num-env-steps", "40", "--ppo-epoch", "1",
+            "--num-mini-batch", "2", "--hidden-size", "16", "--act-hidden-size", "8",
+            "--recurrent-hidden-size", "8", "--log-interval", "1", "--device", "cpu"]
+    train_cli.main(args + ["--run-dir", str(tmp_path / "run")])
+    recs = read_jsonl(tmp_path / "run" / "metrics.jsonl")
+    assert len(recs) == 1 and recs[0]["step"] == 40
+    assert np.isfinite(recs[0]["policy_loss"]) and np.isfinite(recs[0]["value_loss"])
+    train_cli.main(args + ["--run-dir", str(tmp_path / "run2"),
+                           "--model-dir", str(tmp_path / "run")])
+    first = load_checkpoint(str(tmp_path / "run" / "checkpoints" / "state_latest.pt"))
+    second = load_checkpoint(str(tmp_path / "run2" / "checkpoints" / "state_latest.pt"))
+    assert second["step"] == 2 * first["step"] > 0
+
+
 @pytest.mark.parametrize("extra,match", [
     (["--env-name", "SingleCombat"], "item 13"),
-    (["--env-name", "Planning"], "item 11"),
     (["--use-selfplay"], "item 15"),
     (["--algorithm-name", "mappo"], "item 15"),
     (["--use-mesh"], "item 18"),

@@ -1,15 +1,25 @@
-"""Deterministic eval of a committed control checkpoint, by the JAX package or by the port.
+"""Deterministic eval of a committed checkpoint, by the JAX package or by the port.
 
     python tools/heading_eval.py --package jax  [--backend stacked]            # JAX, CPU
     python tools/heading_eval.py --package jax  --backend pallas --interpret   # JAX, CPU
     python tools/heading_eval.py --package port [--backend pallas] [--device cpu]
+    python tools/heading_eval.py --scenario tracking --model UAV \
+        --checkpoint results/uav_tracking/policy_checkpoint.pkl --steps 200
+    python tools/heading_eval.py --env-name Planning --scenario tracking \
+        --checkpoint results/tracking/policy_checkpoint.pkl \
+        --low-level-ckpt results/control/policy_checkpoint.pkl --steps 50 \
+        --backend distilled --interpret
 
 Restores the checkpoint (default results/heading/policy_checkpoint.pkl) into
 the package's F16SimRunner with the default RLConfig networks, on
-ControlEnv(scenario, aero_backend=backend) at --n envs with the scenario's
-sensor noise, and prints one JSON line with `eval_average_episode_rewards`
-of `F16SimRunner.eval(steps)` for each of --repeats evals (each eval draws
-its env seed from the runner's key or generator, so the repeats differ).
+ControlEnv(scenario, model, aero_backend=backend) -- or, with --env-name
+Planning, on PlanningEnv(scenario, model) over the frozen low-level actor of
+--low-level-ckpt, one step of which is `low_level_steps` control steps --
+at --n envs with the scenario's sensor noise, and prints one JSON line with
+`eval_average_episode_rewards` of `F16SimRunner.eval(steps)` for each of
+--repeats evals (each eval draws its env seed from the runner's key or
+generator, so the repeats differ). The JAX PlanningEnv reads its aero
+backend from NEURALPLANE_AERO_BACKEND, which the tool sets to --backend.
 
 `--package jax` runs neuralplane_tpu on the CPU; "stacked" is its CPU
 default, "pallas" the same 43 nets with the fused kernels' bf16 rounding
@@ -43,7 +53,17 @@ def jax_evals(args):
         from jax.experimental import pallas as pl
         orig = pl.pallas_call
         pl.pallas_call = lambda *a, **k: orig(*a, **{**k, "interpret": True})
-    env = ControlEnv(num_envs=args.n, config=args.scenario, aero_backend=args.backend)
+    if args.env_name == "Planning":
+        import pickle
+        from neuralplane_tpu.envs import PlanningEnv
+        os.environ["NEURALPLANE_AERO_BACKEND"] = args.backend
+        with open(args.low_level_ckpt, "rb") as f:
+            low = pickle.load(f)["train_state"].params["actor"]
+        env = PlanningEnv(num_envs=args.n, config=args.scenario, model=args.model,
+                          low_level_params=low)
+    else:
+        env = ControlEnv(num_envs=args.n, config=args.scenario, model=args.model,
+                         aero_backend=args.backend)
     if args.interpret:
         env.config = env.config.replace(kernel_obs_noise=False, kernel_reset_draws=False)
     return env, F16SimRunner, RLConfig
@@ -53,8 +73,15 @@ def port_evals(args):
     from neuralplane_tpu_torch.algorithms.rl_config import RLConfig
     from neuralplane_tpu_torch.envs import ControlEnv
     from neuralplane_tpu_torch.runner import F16SimRunner
-    env = ControlEnv(num_envs=args.n, config=args.scenario, aero_backend=args.backend,
-                     device=args.device)
+    if args.env_name == "Planning":
+        from neuralplane_tpu_torch.envs import PlanningEnv
+        from neuralplane_tpu_torch.envs.planning import load_low_level_ckpt
+        env = PlanningEnv(num_envs=args.n, config=args.scenario, model=args.model,
+                          low_level_params=load_low_level_ckpt(args.low_level_ckpt),
+                          aero_backend=args.backend, device=args.device)
+    else:
+        env = ControlEnv(num_envs=args.n, config=args.scenario, model=args.model,
+                         aero_backend=args.backend, device=args.device)
     return env, F16SimRunner, RLConfig
 
 
@@ -64,6 +91,11 @@ def main(argv=None) -> None:
     ap.add_argument("--checkpoint",
                     default=os.path.join(REPO, "results", "heading", "policy_checkpoint.pkl"))
     ap.add_argument("--scenario", default="heading")
+    ap.add_argument("--model", default="F16", choices=["F16", "UAV", "C172P"])
+    ap.add_argument("--env-name", default="Control", choices=["Control", "Planning"])
+    ap.add_argument("--low-level-ckpt",
+                    default=os.path.join(REPO, "results", "control", "policy_checkpoint.pkl"),
+                    help="Planning: the frozen low-level control policy")
     ap.add_argument("--n", type=int, default=1000)
     ap.add_argument("--steps", type=int, default=2500)
     ap.add_argument("--backend", default="stacked")
@@ -83,6 +115,7 @@ def main(argv=None) -> None:
         finally:
             runner.close()
     print(json.dumps({"package": args.package, "checkpoint": os.path.relpath(args.checkpoint, REPO),
+                      "env_name": args.env_name, "model": args.model,
                       "scenario": args.scenario, "n": args.n, "steps": args.steps,
                       "backend": args.backend, "interpret": args.interpret,
                       "device": args.device if args.package == "port" else "cpu",
