@@ -45,11 +45,24 @@ Phases, each reported on its own line:
      with the xdot kernel against the same step with its plain version;
  19. the committed control, UAV and C172P policies flown by the port against
      the JAX package's evals: env_step once per step for the control
-     policy, no kernel at all for the UAV and the C172P.
+     policy, no kernel at all for the UAV and the C172P;
+ 20. both combat envs on "distilled": SingleCombatEnv(1000, "selfplay") and
+     MultipleCombatEnv(500, "multiple_selfplay"), one step with the xdot
+     kernel against the same step with its plain version, 200 timed steps
+     of random actions (11 and 3 launches of nlplant_distilled per step, no
+     env_step), a profile of 5 steps, one step under CUDA's sync debug mode;
+ 21. 1v1 self-play training at the repo's run configuration
+     (scripts/train_selfplay.sh) through the CLI's make_env and
+     SelfplayRunner.run for one episode, then one ELO eval at a cut horizon;
+     one collect step profiled;
+ 22. the JAX package's committed 1v1 policy (results/selfplay) flying both
+     sides of SingleCombatEnv(1000, "selfplay", "distilled") for 500 steps,
+     the ego team's mean reward per agent-step against the JAX package's.
 
 The launch counters are set to 0 just before phases 6, 7, 12, 13, 14, 15,
-16, 17, 18 and each eval of 19, and read just after; a kernel of the path that
-did not launch, or one that launched off its path in 17-19, fails the run. Any
+16, 17, 18, each eval of 19, each timed run of 20, the run of 21 and the
+eval of 22, and read just after; a kernel of the path that did not launch,
+or one that launched off its path in 17-22, fails the run. Any
 mismatch, non-finite value or failed check exits non-zero. The
 second-to-last line is the kernel table as JSON, the last line the device
 record.
@@ -834,15 +847,17 @@ def policy_card_vs_cpu(policy, batch, rows: int = 4096, length: int = 8) -> floa
     return worst
 
 
-def timed_runner():
-    """F16SimRunner with collect and train timed on the host clock between
-    synchronizations, and the last collected batch kept."""
+def timed_runner(base=None):
+    """`base` (default F16SimRunner) with collect and train timed on the
+    host clock between synchronizations, the kernel launches of each
+    collect counted, and the last collected batch kept."""
     from neuralplane_tpu_torch.runner import F16SimRunner
 
-    class Timed(F16SimRunner):
+    class Timed(base or F16SimRunner):
         def __init__(self, *a, **k):
             super().__init__(*a, **k)
             self.times = {"collect": [], "train": []}
+            self.collect_launches = []
             self.last_batch = None
 
         def _timed(self, key, fn, *args):
@@ -854,7 +869,9 @@ def timed_runner():
             return out
 
         def collect(self, carry):
+            before = read_counts()
             out = self._timed("collect", super().collect, carry)
+            self.collect_launches.append({k: v - before[k] for k, v in read_counts().items()})
             self.last_batch = out[1]
             return out
 
@@ -1287,6 +1304,262 @@ def phase_policies(table, n=1000, phase=19):
         if model == "F16":
             table["env_step"]["launches_control_eval"] = counts["env_step"]
 
+# One combat step with the xdot kernel against the same step with its plain
+# version (phase 20): a 1v1 step chains 11 xdot evaluations through five
+# PID-stabilised inner steps, the team step 3 through one. Per column,
+# relative to its RMS (as PLAN_LIMITS): the median (measured 3.23e-07 1v1,
+# 2.18e-07 team; limit 1e-5), the share of rows above 1e-3 (3.5e-03 and
+# 5.0e-04; limit 0.02) and the largest (1.28e-02 and 1.54e-03; limit 0.1);
+# the share of rows whose flags differ was 0 (limit 1e-3). Measured on an
+# H100 80GB HBM3 at 700 W, 1000 1v1 envs and 500 team envs.
+COMBAT_LIMITS = (1e-5, 1e-3, 0.02, 0.1)
+COMBAT_FLAG_SHARE = 1e-3
+SELFPLAY_CKPT = os.path.join(REPO, "results", "selfplay", "policy_checkpoint.pkl")
+# The JAX package's results/selfplay policy flying both sides of
+# SingleCombatEnv(1000, "selfplay") deterministically on the CPU with
+# NEURALPLANE_AERO_BACKEND=distilled (the Pallas xdot kernel in interpret
+# mode), 500 steps: the ego team's mean reward per agent-step for the
+# runner's first five keys, by `python tools/heading_eval.py --package jax
+# --env-name SingleCombat --scenario selfplay --checkpoint
+# results/selfplay/policy_checkpoint.pkl --steps 500 --backend distilled
+# --interpret --repeats 5`: keys 0.0125124297, 0.0125076611, 0.0124845645,
+# 0.0125317197, 0.0124690625 (spread 0.26%); the limit is 2.5 times the
+# largest key's distance from the mean, rounded up to a whole percent.
+JAX_SELFPLAY_EVAL = 0.0125010875
+SELFPLAY_REL_LIMIT = 0.01
+SELFPLAY_EVAL_STEPS = 500
+
+
+def combat_env(cls, n_envs: int, config: str):
+    return cls(num_envs=n_envs, config=config, aero_backend="distilled", device="cuda")
+
+
+def step_under_sync_debug(env, st, a, what: str) -> None:
+    """One env step under CUDA's sync debug mode 'error': the step must not
+    make the host wait for the card."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        env.step(st, a)
+    except RuntimeError as e:
+        raise Mismatch(f"{what} synchronizes the host with the card: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def combat_step_vs_plain(env, name: str, warm: int = 5, phase: int = 20) -> None:
+    """From a state carried through `warm` steps of random actions, one more
+    step with nlplant_distilled and the same step with its plain version on
+    the card (same generator state, same actions), under COMBAT_LIMITS."""
+    import functools
+    from neuralplane_tpu_torch.ops import aero_cuda
+    g = torch.Generator(device="cuda").manual_seed(5)
+
+    def act():
+        return torch.rand((env.n, env.num_actions), generator=g, device="cuda") * 2 - 1
+    st, _ = env.reset(5)
+    for _ in range(warm):
+        st, _ = env.step(st, act())
+    a = act()
+    gen = env.generator.get_state()
+    got_st, got = env.step(st, a)
+    env.generator.set_state(gen)
+    env.model.dynamics = functools.partial(aero_cuda.nlplant_distilled_plain,
+                                           env.model.weights)
+    try:
+        want_st, want = env.step(st, a)
+    finally:
+        del env.model.dynamics
+    torch.cuda.synchronize()
+    STATS.clear()
+    flags = [float((getattr(got, f) != getattr(want, f)).float().mean())
+             for f in ("done", "bad_done", "exceed_time_limit")]
+    agree = (got.done == want.done) & (got.bad_done == want.bad_done)
+    pairs = (("obs", got.obs, want.obs), ("reward", got.reward[agree], want.reward[agree]),
+             ("state", got_st.model.s, want_st.model.s),
+             ("blood", got_st.blood, want_st.blood))
+    errs, fail = {}, None
+    for what, gv, wv in pairs:
+        try:
+            errs[what] = compare_cols(f"{name} step {what}", gv, wv, COMBAT_LIMITS)
+        except Mismatch as e:
+            fail = fail or e
+    log(f"phase {phase} one {name} step, kernel vs plain on the card, n={env.n}, "
+        f"{env.inner_steps} inner steps: |err|/rms median {STATS['median']:.2e} "
+        f"share above {COMBAT_LIMITS[1]} {STATS['share']:.2e} max {STATS['max']:.2e} "
+        f"(limits {COMBAT_LIMITS}); flag disagreement {['%.2e' % f for f in flags]} "
+        f"(limit {COMBAT_FLAG_SHARE}); max_abs_err {errs}")
+    if fail is not None:
+        raise fail
+    if max(flags) > COMBAT_FLAG_SHARE:
+        raise Mismatch(f"{name} step: flags differ on {max(flags):.2e} of rows")
+
+
+def phase_combat(table, steps: int = 200, phase: int = 20) -> None:
+    """Both combat envs on the card: kernel against plain through one step,
+    then `steps` timed steps of uniform random actions with the counters set
+    to 0 just before and read just after, a profile of 5 steps and one step
+    under the sync debug mode."""
+    from neuralplane_tpu_torch.envs import MultipleCombatEnv, SingleCombatEnv
+    cases = (("SingleCombatEnv(selfplay)", SingleCombatEnv, 1000, "selfplay", 11,
+              "launches_combat"),
+             ("MultipleCombatEnv(multiple_selfplay)", MultipleCombatEnv, 500,
+              "multiple_selfplay", 3, "launches_combat_team"))
+    for name, cls, n_envs, config, per_step, key in cases:
+        env = combat_env(cls, n_envs, config)
+        combat_step_vs_plain(env, name, phase=phase)
+        g = torch.Generator(device="cuda").manual_seed(7)
+        actions = [torch.rand((env.n, env.num_actions), generator=g, device="cuda") * 2 - 1
+                   for _ in range(steps + 1)]
+        st, _ = env.reset(7)
+        st, _ = env.step(st, actions[0])   # warm-up
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        for a in actions[1:]:
+            st, out = env.step(st, a)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        finite = bool(torch.isfinite(st.model.s).all() and torch.isfinite(out.obs).all()
+                      and torch.isfinite(out.reward).all())
+        log(f"phase {phase} {name} distilled n={env.n}: {steps} steps of random actions "
+            f"{wall * 1e3 / steps:.4f} ms/step, {env.n * env.inner_steps * steps / wall:.4e} "
+            f"inner FDM steps/s (aircraft x inner steps), launches {counts}, finite {finite}")
+        check_counts(f"{name} {steps} steps", counts, {"nlplant_distilled": per_step * steps})
+        if not finite:
+            raise Mismatch(f"{name}: non-finite state, obs or reward")
+        table["nlplant_distilled"][key] = counts["nlplant_distilled"]
+        holder = [st]
+
+        def one_step(holder=holder, env=env):
+            holder[0], _ = env.step(holder[0], actions[1])
+        busy, wall_us, launches, top = profile_calls(one_step, 5)
+        if busy:
+            log(f"phase {phase} profile {name} step: device busy {busy:.1f} us of "
+                f"{wall_us:.1f} us wall, idle share {1 - busy / wall_us:.3f}, {launches:g} "
+                f"device launches ({launches / env.inner_steps:.1f} per inner step); {top}")
+        else:
+            log(f"phase {phase} profile: the profiler saw no device time (not measured)")
+        step_under_sync_debug(env, holder[0], actions[2], f"the {name} step")
+        log(f"phase {phase} one {name} step under sync debug mode 'error': no host sync OK")
+
+
+def phase_selfplay_train(table, eval_steps: int = 100, phase: int = 21) -> None:
+    """1v1 self-play training on the card at the repo's run configuration
+    (scripts/train_selfplay.sh: 1000 envs, buffer 1000, chunks of 8, 5
+    minibatches, 16 epochs, lr 3e-4, entropy 1e-3, max grad norm 2,
+    min_log_std -2.3, FSP, one opponent, tie band 1.0), built by the CLI's
+    make_env and run by SelfplayRunner.run for one episode on "distilled";
+    then one eval_elo at `eval_steps` steps (the run's own horizon is
+    max_steps = 2000). Counters set to 0 just before the run and read just
+    after: the collect launches nlplant_distilled 11 times per step, the
+    reset that starts the run once more, env_step never."""
+    import tempfile
+    from neuralplane_tpu_torch.runner import SelfplayRunner
+    from neuralplane_tpu_torch.scripts import train as train_cli
+    n, T = 1000, 1000
+    argv = ["--env-name", "SingleCombat", "--scenario-name", "selfplay", "--use-selfplay",
+            "--selfplay-algorithm", "fsp", "--n-choose-opponents", "1", "--elo-tie-band",
+            "1.0", "--use-eval", "--eval-interval", "10", "--n-rollout-threads", str(n),
+            "--num-env-steps", str(T * n), "--buffer-size", str(T),
+            "--num-mini-batch", "5", "--ppo-epoch", "16", "--lr", "3e-4", "--gamma", "0.99",
+            "--entropy-coef", "1e-3", "--max-grad-norm", "2", "--min-log-std", "-2.3",
+            "--data-chunk-length", "8", "--log-interval", "1", "--save-interval", "1",
+            "--aero-backend", "distilled", "--device", "cuda"]
+    args = train_cli.get_parser().parse_args(argv)
+    cfg = train_cli.args_to_config(args)
+    env = train_cli.make_env(args)
+    with tempfile.TemporaryDirectory() as run_dir:
+        runner = timed_runner(SelfplayRunner)(env, cfg, run_dir=run_dir)
+        torch.cuda.synchronize()
+        held_mib = torch.cuda.memory_allocated() / 2 ** 20
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        try:
+            runner.run()
+        finally:
+            runner.close()
+        counts = read_counts()
+        peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+        with open(os.path.join(run_dir, "metrics.jsonl"), encoding="utf-8") as f:
+            records = [json.loads(line) for line in f]
+        saved = sorted(os.listdir(runner.save_dir))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        elo = runner.eval_elo(eval_steps)
+        eval_s = time.perf_counter() - t0
+    c_s, t_s = runner.times["collect"][0], runner.times["train"][0]
+    collect_counts = runner.collect_launches[0]
+    log(f"phase {phase} self-play training SingleCombatEnv(selfplay, distilled) {n} envs "
+        f"({runner.n_ego} ego agents), buffer {T}: collect {c_s * 1e3 / T:.4f} ms/step "
+        f"({c_s:.3f} s), update {t_s:.3f} s, {T * runner.n_ego / (c_s + t_s):.4e} training "
+        f"agent-steps/s, peak device memory {peak_mib:.1f} MiB ({held_mib:.1f} MiB of it held "
+        f"before the phase); launches in the run {counts}, in the collect {collect_counts}; "
+        f"checkpoints {saved}; metrics {json.dumps(records[0]) if records else None}")
+    log(f"phase {phase} eval_elo at {eval_steps} steps (cut from max_steps "
+        f"{env.config.max_steps}) in {eval_s:.3f} s ({eval_s * 1e3 / eval_steps:.4f} ms/step): "
+        f"{json.dumps(elo)}; pool {json.dumps(runner.policy_pool)}")
+    check_counts("self-play collect", collect_counts, {"nlplant_distilled": 11 * T})
+    check_counts("self-play run", counts, {"nlplant_distilled": 11 * T + 1})
+    finite = all(math.isfinite(v) for rec in records for v in rec.values())
+    pool = [f for f in saved if f.startswith("actor_")]
+    if not finite or len(records) != 1 or pool != ["actor_0.pt", "actor_1.pt"] \
+            or not math.isfinite(elo["latest_elo"]):
+        raise Mismatch("self-play training: non-finite metric, missing record or pool entry")
+    table["nlplant_distilled"]["launches_selfplay_training"] = collect_counts["nlplant_distilled"]
+    carry = [runner.init_carry(runner.next_seed())]
+
+    @torch.no_grad()
+    def collect_step():
+        carry[0] = runner._collect_step(carry[0])[0]
+    busy, wall, launches, top = profile_calls(collect_step, 1)
+    if busy:
+        log(f"phase {phase} profile one self-play collect step: device busy {busy:.1f} us of "
+            f"{wall:.1f} us wall, idle share {1 - busy / wall:.3f}, {launches:g} device "
+            f"launches; {top}")
+    else:
+        log(f"phase {phase} profile: the profiler saw no device time (not measured)")
+
+
+def phase_selfplay_fly(table, n_envs: int = 1000, phase: int = 22) -> None:
+    """results/selfplay/policy_checkpoint.pkl (read without JAX) flying both
+    sides of SingleCombatEnv(n_envs, "selfplay", "distilled") for
+    SELFPLAY_EVAL_STEPS deterministic steps, by tools/heading_eval.py's own
+    loop: the ego team's mean reward per agent-step within
+    SELFPLAY_REL_LIMIT of JAX_SELFPLAY_EVAL."""
+    import tempfile
+    import types
+    from neuralplane_tpu_torch.algorithms.rl_config import RLConfig
+    from neuralplane_tpu_torch.envs import SingleCombatEnv
+    from neuralplane_tpu_torch.runner import F16SimRunner
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    from heading_eval import port_combat_values
+    env = combat_env(SingleCombatEnv, n_envs, "selfplay")
+    with tempfile.TemporaryDirectory() as run_dir:
+        runner = F16SimRunner(env, RLConfig(), run_dir=run_dir, model_dir=SELFPLAY_CKPT)
+        runner.close()
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    value, = port_combat_values(types.SimpleNamespace(repeats=1, steps=SELFPLAY_EVAL_STEPS),
+                                env, runner)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    ref = JAX_SELFPLAY_EVAL
+    rel = abs(value - ref) / abs(ref)
+    log(f"phase {phase} JAX-trained 1v1 policy (results/selfplay) flying both sides, "
+        f"deterministic: ego mean reward per agent-step {value:.6f} (the JAX package on the "
+        f"CPU: {ref}, relative difference {rel:.4f}, limit {SELFPLAY_REL_LIMIT}); "
+        f"n={env.n}, {SELFPLAY_EVAL_STEPS} steps in {wall:.3f} s "
+        f"({wall * 1e3 / SELFPLAY_EVAL_STEPS:.4f} ms/step); launches {counts}")
+    check_counts("self-play policy eval", counts,
+                 {"nlplant_distilled": 11 * SELFPLAY_EVAL_STEPS + 1})
+    if not math.isfinite(value) or rel > SELFPLAY_REL_LIMIT:
+        raise Mismatch(f"phase {phase}: the port's 1v1 eval is {rel:.4f} away from the JAX "
+                       f"package's (limit {SELFPLAY_REL_LIMIT})")
+    table["nlplant_distilled"]["launches_selfplay_eval"] = counts["nlplant_distilled"]
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1347,6 +1620,11 @@ def main(argv=None) -> int:
     phase_planning_fly(table)
     phase_policies(table)
     log(f"phases 17-19: {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    phase_combat(table)
+    phase_selfplay_train(table)
+    phase_selfplay_fly(table)
+    log(f"phases 20-22: {time.perf_counter() - t0:.1f} s wall")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,4 +1,4 @@
-"""Termination predicates of the control tasks (counterpart of
+"""Termination predicates of the control and combat tasks (counterpart of
 neuralplane_tpu/envs/terminations.py). Each returns (bad_done, done,
 exceed_time_limit) bool tensors [n]."""
 from __future__ import annotations
@@ -83,3 +83,22 @@ def unreach_target(cfg, model, mstate, step_count, target_npos, target_epos,
            | (torch.abs(epos - target_epos) >= 100.0)
            | (torch.abs(altitude - target_altitude) >= 100.0))
     return over_max & off, (~off) & (~over_max), _none_like(off)
+
+
+def timeout(cfg, step_count):
+    """step_count >= max_steps -> exceed_time_limit."""
+    exceed = step_count >= cfg.max_steps
+    return _none_like(exceed), _none_like(exceed), exceed
+
+
+def crash(cfg, ego_pos, enm_pos):
+    """Pairwise distance < distance_limit ft -> both crash."""
+    bad = torch.linalg.vector_norm(enm_pos - ego_pos, dim=-1) < cfg.distance_limit
+    return bad, _none_like(bad), _none_like(bad)
+
+
+def shutdown(cfg, ego_blood, enm_blood):
+    """Blood <= 0: ego dead -> bad_done (lose); enemy dead while ego alive ->
+    done (win)."""
+    bad = ego_blood <= 0.0
+    return bad, (enm_blood <= 0.0) & ~bad, _none_like(bad)

@@ -32,3 +32,6 @@ class StepOutput:
     bad_done: torch.Tensor
     exceed_time_limit: torch.Tensor
     info: Any = None   # {"termination/<name>": 0-d int tensor on the device}
+    # per-agent liveness after the step (float [n]); the team combat env
+    # sets it (MAPPO's active masks, the ELO event scoring), None elsewhere
+    active: Any = None

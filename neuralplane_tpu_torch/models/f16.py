@@ -143,6 +143,12 @@ class F16Model:
                                       self.solver)
         return F16State(s=s, u=u, recent_s=state.s, recent_u=state.u), xdot
 
+    def raw_control_update(self, state: F16State, u: torch.Tensor) -> F16State:
+        """Integrate with an explicitly set control vector (the PID path of
+        the combat envs)."""
+        s = integrate(self.dynamics, state.s, u, self.dt, self.solver)
+        return F16State(s=s, u=u, recent_s=state.s, recent_u=state.u)
+
     def extended_state(self, state: F16State) -> torch.Tensor:
         return self.dynamics(state.s, state.u)
 
@@ -185,6 +191,15 @@ class F16Model:
         sb, cb = torch.sin(st.s[:, 8]), torch.cos(st.s[:, 8])
         vt = st.s[:, 6]
         return vt * cb * ca, vt * sb, vt * cb * sa
+
+    def get_ground_speed(self, st, xdot: torch.Tensor):
+        return xdot[:, 0], xdot[:, 1]
+
+    def get_climb_rate(self, st, xdot: torch.Tensor):
+        return xdot[:, 2]
+
+    def get_euler_angular_velocity(self, st, xdot: torch.Tensor):
+        return xdot[:, 3], xdot[:, 4], xdot[:, 5]
 
     def _body_accel(self, st, xdot: torch.Tensor):
         s = st.s

@@ -1,5 +1,7 @@
 from .base import Runner
 from .f16sim import F16SimRunner, RolloutCarry
 from .gym_adapter import GymEnvAdapter, GymRunner
+from .selfplay import SelfplayCarry, SelfplayRunner, pool_slices, team_merge, team_split
 
-__all__ = ["Runner", "F16SimRunner", "RolloutCarry", "GymEnvAdapter", "GymRunner"]
+__all__ = ["Runner", "F16SimRunner", "RolloutCarry", "GymEnvAdapter", "GymRunner",
+           "SelfplayCarry", "SelfplayRunner", "pool_slices", "team_merge", "team_split"]

@@ -14,6 +14,13 @@ tensorboard package is importable and asked for, to a SummaryWriter.
 actor-only pickle grafted onto the fresh critic with a fresh Adam (:90-109).
 The graft checks every leaf's shape as well as the tree's names and names
 the first leaf that differs (the JAX runner checks the structure only).
+
+Subclasses keep host-side state in the checkpoint through the JAX runner's
+two hooks: `_extra_state()` is merged into the saved blob,
+and `restore` leaves the blob's other keys in `_restored_extras`, from a
+port `.pt` and from a JAX `state_*.pkl` alike (empty for an actor-only
+pickle). `restore` runs inside `Runner.__init__`, before a subclass sets its
+own attributes, so the subclass reads `_restored_extras` after that.
 """
 from __future__ import annotations
 
@@ -48,6 +55,7 @@ class Runner:
         # every draw of the rollouts and updates: actions, epoch
         # permutations, env seeds
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self._restored_extras: Dict = {}
         if model_dir is not None:
             self.restore(model_dir)
 
@@ -78,6 +86,13 @@ class Runner:
         return dict(zip(metrics, values))
 
     # ---- persistence ----
+    _CORE_KEYS = ("policy", "optimizer", "step", "generator", "generator_device")
+
+    def _extra_state(self) -> Dict:
+        """Subclass hook: host-side state that rides along in the checkpoint
+        (the self-play runner's pool ratings)."""
+        return {}
+
     def save(self, tag: str = "latest") -> str:
         path = os.path.join(self.save_dir, f"state_{tag}.pt")
         save_checkpoint(path, {
@@ -85,7 +100,8 @@ class Runner:
             "optimizer": self.trainer.optimizer.state_dict(),
             "step": self.trainer.step,
             "generator": self.generator.get_state(),
-            "generator_device": self.device.type})
+            "generator_device": self.device.type,
+            **self._extra_state()})
         return path
 
     def restore(self, path: str) -> None:
@@ -102,12 +118,16 @@ class Runner:
             # a generator's state fits generators of its own device type only
             if blob["generator_device"] == self.device.type:
                 self.generator.set_state(blob["generator"])
+            self._restored_extras = {k: v for k, v in blob.items()
+                                     if k not in self._CORE_KEYS}
             return
         blob = load_jax_pickle(path)
         if isinstance(blob, dict) and "train_state" in blob:
             # the JAX threefry key has no torch counterpart: the generator
             # stays as seeded
             train_state_from_jax(blob["train_state"], self.trainer)
+            self._restored_extras = {k: v for k, v in blob.items()
+                                     if k not in ("train_state", "key")}
             return
         # actor-only pickle: graft the actor onto the fresh critic; critic
         # and Adam restart, the update count at 0
@@ -118,6 +138,7 @@ class Runner:
                              f"policy's actor: first difference at {bad}")
         self.policy.actor.load_state_dict(actor)
         self.trainer.init_state()
+        self._restored_extras = {}
 
     # ---- logging ----
     def log_info(self, infos: Dict[str, float], total_num_steps: int) -> None:

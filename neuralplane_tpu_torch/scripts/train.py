@@ -1,4 +1,4 @@
-"""Training CLI, the Control and Planning branches (counterpart of
+"""Training CLI, the Control, Planning and combat branches (counterpart of
 neuralplane_tpu/scripts/train.py:1-258).
 
 The same argparse flags and `args_to_config`, so the JAX package's launch
@@ -15,10 +15,14 @@ lines run here unchanged, plus `--device` (the reference's --cuda; default
 results/control/policy_checkpoint.pkl` trains the high level of the
 hierarchical env over a frozen control policy (a JAX pickle or a port
 `.pt`); `--model-name UAV|C172P` picks the other airframes of the Control
-env. `--model-dir` resumes from the port's checkpoints and from the JAX
+env. `--env-name SingleCombat --scenario-name selfplay --use-selfplay`
+trains 1v1 self-play against a pool of frozen past selves (SelfplayRunner;
+`scripts/train_selfplay.sh` has the repo's flags); `--env-name
+MultipleCombat` builds the team game, whose self-play needs MAPPO, as in the
+JAX CLI. `--model-dir` resumes from the port's checkpoints and from the JAX
 package's (a run directory, `state_*.pkl`, `results/*/policy_checkpoint.pkl`).
 What the port does not have yet raises NotImplementedError naming its
-ROADMAP.md item: the combat envs, self-play, MAPPO and the device mesh.
+ROADMAP.md item: the shoot envs, MAPPO and the device mesh.
 """
 from __future__ import annotations
 
@@ -28,15 +32,13 @@ import os
 import time
 
 from ..algorithms.rl_config import RLConfig
-from ..envs import ControlEnv, PlanningEnv
+from ..envs import ControlEnv, MultipleCombatEnv, PlanningEnv, SingleCombatEnv
 from ..envs.planning import load_low_level_ckpt
-from ..runner import F16SimRunner
+from ..runner import F16SimRunner, SelfplayRunner
 
 # what the port does not have yet, by ROADMAP.md section 1 item
 _NOT_YET = {
-    "SingleCombat": "the combat envs are ROADMAP.md section 1, item 13",
     "SingleCombatShoot": "the shoot combat envs are ROADMAP.md section 1, item 14",
-    "MultipleCombat": "the combat envs are ROADMAP.md section 1, item 13",
     "MultipleCombatShoot": "the shoot combat envs are ROADMAP.md section 1, item 14",
 }
 
@@ -203,15 +205,23 @@ def make_env(args: argparse.Namespace, num_envs: int = None):
         return PlanningEnv(num_envs=n, config=args.scenario_name, model=args.model_name,
                            low_level_params=low, aero_backend=args.aero_backend,
                            device=args.device)
+    if args.env_name in ("SingleCombat", "MultipleCombat"):
+        cls = SingleCombatEnv if args.env_name == "SingleCombat" else MultipleCombatEnv
+        return cls(num_envs=n, config=args.scenario_name, aero_backend=args.aero_backend,
+                   device=args.device)
     raise NotImplementedError(f"--env-name {args.env_name}: {_NOT_YET[args.env_name]}")
 
 
 def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO)
     args = get_parser().parse_args(argv)
-    if args.use_selfplay:
-        raise NotImplementedError("--use-selfplay: self-play and its runners are "
-                                  "ROADMAP.md section 1, item 15")
+    if (args.env_name in ("MultipleCombat", "MultipleCombatShoot")
+            and args.use_selfplay and args.algorithm_name != "mappo"):
+        raise SystemExit(
+            "MultipleCombat self-play requires --algorithm-name mappo: the "
+            "team env has mid-episode deaths, and only the MAPPO runner's "
+            "active_masks stop dead agents' frozen-corpse transitions from "
+            "training at full weight")
     if args.algorithm_name == "mappo":
         raise NotImplementedError("--algorithm-name mappo: MAPPO is ROADMAP.md "
                                   "section 1, item 15")
@@ -227,9 +237,9 @@ def main(argv=None) -> None:
         "runs", f"{time.strftime('%Y-%m-%d_%H-%M-%S')}_{args.env_name}_"
         f"{args.scenario_name}_{args.model_name}_{args.algorithm_name}_"
         f"{args.experiment_name}")
-    runner = F16SimRunner(env, cfg, run_dir=run_dir, eval_env=eval_env,
-                          model_dir=args.model_dir,
-                          use_tensorboard=args.use_tensorboard)
+    runner_cls = SelfplayRunner if args.use_selfplay else F16SimRunner
+    runner = runner_cls(env, cfg, run_dir=run_dir, eval_env=eval_env,
+                        model_dir=args.model_dir, use_tensorboard=args.use_tensorboard)
     try:
         runner.run()
     finally:

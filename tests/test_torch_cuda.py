@@ -418,3 +418,62 @@ def test_planning_step_kernel_matches_plain_on_card(n):
         assert (err > 1e-3).float().mean(0).max() <= max(5e-2, 1.0 / n)
     for f in ("done", "bad_done", "exceed_time_limit"):
         assert (getattr(g, f) != getattr(w, f)).float().mean() <= max(1e-2, 1.0 / n)
+
+
+def combat_step_pair(cls, n_envs, seed=5):
+    """One combat step on "distilled" from a state two steps in, with
+    nlplant_distilled and with its plain version (same generator state and
+    actions): ((state, out) kernel, (state, out) plain, (xdot kernel
+    launches, env_step launches) of the first), the first under the sync
+    debug mode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import functools
+    env = cls(n_envs, aero_backend="distilled", device="cuda")
+    rng = np.random.default_rng(seed)
+
+    def act():
+        return T(rng.uniform(-1, 1, (env.n, 4)).astype(np.float32)).cuda()
+    st, _ = env.reset(seed)
+    for _ in range(2):
+        st, _ = env.step(st, act())
+    a = act()
+    gen = env.generator.get_state()
+    aero_cuda.nlplant_distilled.launches = step_cuda.env_step.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")   # the step never waits for the card
+    try:
+        got = env.step(st, a)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    launches = (aero_cuda.nlplant_distilled.launches, step_cuda.env_step.launches)
+    env.generator.set_state(gen)
+    env.model.dynamics = functools.partial(aero_cuda.nlplant_distilled_plain,
+                                           env.model.weights)
+    want = env.step(st, a)
+    torch.cuda.synchronize()
+    return got, want, launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("team", [False, True])
+@pytest.mark.parametrize("n_envs", [1, 33, 500])
+def test_combat_step_kernel_matches_plain_on_card(team, n_envs):
+    """chip_smoke.py phase 20's check at small sizes: a 1v1 step launches
+    nlplant_distilled 11 times, a team step 3 times, env_step never, with
+    no host sync; obs, state and reward against the plain version, per
+    column relative to its RMS: median within 1e-4, at most 5% of rows
+    above 1e-3, none above 1; flags on all but 1% of rows."""
+    from neuralplane_tpu_torch.envs import MultipleCombatEnv, SingleCombatEnv
+    cls = MultipleCombatEnv if team else SingleCombatEnv
+    (gs, g), (ws, w), launches = combat_step_pair(cls, n_envs)
+    assert launches == ((3 if team else 11), 0)
+    n = gs.model.s.shape[0]
+    assert g.obs.shape == (n, 30 if team else 15) and torch.isfinite(g.obs).all()
+    for got, want in ((g.obs, w.obs), (gs.model.s, ws.model.s), (g.reward, w.reward)):
+        scale = want.reshape(n, -1).pow(2).mean(0).sqrt().clamp_min(1e-6)
+        err = (got - want).reshape(n, -1).abs() / scale
+        assert err.median(0).values.max() < 1e-4 and err.max() < 1.0
+        assert (err > 1e-3).float().mean(0).max() <= max(5e-2, 1.0 / n)
+    for f in ("done", "bad_done", "exceed_time_limit"):
+        assert (getattr(g, f) != getattr(w, f)).float().mean() <= max(1e-2, 1.0 / n)

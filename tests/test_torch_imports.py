@@ -10,7 +10,9 @@ import torch
 
 import neuralplane_tpu_torch
 from neuralplane_tpu_torch.algorithms.ppo import PPOPolicy
-from neuralplane_tpu_torch.envs import ControlEnv, Env, PlanningEnv, make_control_vec_env
+from neuralplane_tpu_torch.algorithms.pid import Controller
+from neuralplane_tpu_torch.envs import (ControlEnv, Env, MultipleCombatEnv, PlanningEnv,
+                                        SingleCombatEnv, make_control_vec_env)
 from neuralplane_tpu_torch.measure import measure_env_step
 from neuralplane_tpu_torch.ops.aero import (load_aero_weights, load_distilled,
                                             select_aero_weights)
@@ -33,10 +35,15 @@ assert not bad, bad
 print(" ".join(names))
 """
 
-# modules added with the other airframes, the planning env and the gym
-# adapters: each must be among those imported above
+# modules added with the other airframes, the planning env, the gym
+# adapters, the classical controllers, the combat envs and self-play: each
+# must be among those imported above
 NEW_MODULES = ("ops.linear_aero", "models.uav", "models.c172p", "envs.planning",
-               "envs.wrappers", "runner.gym_adapter")
+               "envs.wrappers", "runner.gym_adapter", "algorithms.pid",
+               "algorithms.pid.config", "algorithms.pid.pid", "algorithms.pid.attitude",
+               "algorithms.pid.speed", "algorithms.pid.tecs", "algorithms.pid.l1",
+               "algorithms.pid.controller", "envs.combat", "algorithms.selfplay",
+               "runner.selfplay")
 
 
 def test_port_imports_no_jax():
@@ -52,7 +59,9 @@ def test_port_imports_no_jax():
 
 @pytest.mark.parametrize("entry", [ControlEnv, Env, load_distilled, measure_env_step,
                                    load_aero_weights, select_aero_weights, task_step,
-                                   PPOPolicy, PlanningEnv, make_control_vec_env, GymRunner])
+                                   PPOPolicy, PlanningEnv, make_control_vec_env, GymRunner,
+                                   SingleCombatEnv, MultipleCombatEnv,
+                                   Controller().init_state])
 def test_entry_points_default_to_cuda(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
 
@@ -73,6 +82,15 @@ def test_planning_env_without_device_targets_cuda():
     else:
         with pytest.raises((RuntimeError, AssertionError)):
             PlanningEnv(num_envs=2)
+
+
+@pytest.mark.parametrize("cls", [SingleCombatEnv, MultipleCombatEnv])
+def test_combat_envs_without_device_target_cuda(cls):
+    if torch.cuda.is_available():
+        assert cls(num_envs=2).device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            cls(num_envs=2)
 
 
 def test_aero_backends_outside_the_port_raise():

@@ -17,7 +17,9 @@
   runner's own save) restored by the port.
 - The CLI on the CPU writing metrics.jsonl and checkpoints: the Control env
   on the F-16, the UAV and the C172P, and the Planning env over the
-  committed control policy, trained and resumed from its run directory.
+  committed control policy, trained and resumed from its run directory;
+  1v1 self-play with an ELO eval, resumed with its pool; the team env's
+  self-play refused without MAPPO, as in the JAX CLI.
 """
 import json
 import os
@@ -304,11 +306,60 @@ def test_cli_trains_planning_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--env-name", "SingleCombat"], "item 13"),
-    (["--use-selfplay"], "item 15"),
+    (["--env-name", "SingleCombatShoot"], "item 14"),
+    (["--env-name", "MultipleCombatShoot"], "item 14"),
     (["--algorithm-name", "mappo"], "item 15"),
     (["--use-mesh"], "item 18"),
 ])
 def test_cli_names_what_is_not_ported(tmp_path, extra, match):
     with pytest.raises(NotImplementedError, match=match):
         train_cli.main(CLI + ["--run-dir", str(tmp_path / "run")] + extra)
+
+
+SELFPLAY_CLI = ["--env-name", "SingleCombat", "--scenario-name", "selfplay", "--use-selfplay",
+                "--selfplay-algorithm", "fsp", "--n-choose-opponents", "1",
+                "--elo-tie-band", "1.0", "--n-rollout-threads", "2", "--buffer-size", "4",
+                "--data-chunk-length", "2", "--num-env-steps", "16", "--ppo-epoch", "1",
+                "--num-mini-batch", "1", "--hidden-size", "16", "--act-hidden-size", "8",
+                "--recurrent-hidden-size", "8", "--log-interval", "1", "--device", "cpu"]
+
+
+def test_cli_trains_selfplay_on_cpu(tmp_path):
+    """--env-name SingleCombat --use-selfplay: two episodes of a tiny run,
+    one ELO eval on a dedicated 2-env eval env at a 6-step horizon (the
+    scenario file cuts max_steps), the checkpoint with the pool's ratings
+    and one pool entry per save; then resumed from the checkpoint, its pool
+    imported."""
+    scenario = tmp_path / "selfplay.yaml"
+    with open(os.path.join(REPO, "neuralplane_tpu", "configs", "selfplay.yaml"),
+              encoding="utf-8") as f:
+        scenario.write_text(f.read().replace("max_steps: 2000", "max_steps: 6"))
+    args = list(SELFPLAY_CLI)
+    args[args.index("--scenario-name") + 1] = str(scenario)
+    args += ["--use-eval", "--eval-interval", "1", "--n-eval-rollout-threads", "2"]
+    train_cli.main(args + ["--run-dir", str(tmp_path / "run")])
+    recs = read_jsonl(tmp_path / "run" / "metrics.jsonl")
+    assert [r["step"] for r in recs] == [8, 16, 16]
+    assert np.isfinite(recs[1]["policy_loss"]) and recs[2]["eval_episodes_ended"] >= 2
+    ckpt = tmp_path / "run" / "checkpoints"
+    assert sorted(os.listdir(ckpt)) == ["actor_0.pt", "actor_1.pt", "actor_2.pt",
+                                        "state_latest.pt"]
+    blob = load_checkpoint(str(ckpt / "state_latest.pt"))
+    # the checkpoint is saved before the episode's pool entry, as in JAX
+    assert sorted(blob["selfplay"]["policy_pool"]) == ["0", "1"]
+    train_cli.main(args + ["--run-dir", str(tmp_path / "run2"),
+                           "--model-dir", str(ckpt / "state_latest.pt")])
+    assert sorted(os.listdir(tmp_path / "run2" / "checkpoints"))[-2:] == \
+        ["actor_4.pt", "state_latest.pt"]
+
+
+def test_cli_team_selfplay_needs_mappo(tmp_path):
+    """MultipleCombat self-play without mappo exits, as in the JAX CLI; the
+    team env itself builds."""
+    args = list(SELFPLAY_CLI)
+    args[args.index("SingleCombat")] = "MultipleCombat"
+    args[args.index("selfplay")] = "multiple_selfplay"
+    with pytest.raises(SystemExit, match="requires --algorithm-name mappo"):
+        train_cli.main(args + ["--run-dir", str(tmp_path / "run")])
+    env = train_cli.make_env(train_cli.get_parser().parse_args(args))
+    assert env.num_observation == 30 and env.n == 8

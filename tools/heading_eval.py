@@ -9,6 +9,9 @@
         --checkpoint results/tracking/policy_checkpoint.pkl \
         --low-level-ckpt results/control/policy_checkpoint.pkl --steps 50 \
         --backend distilled --interpret
+    python tools/heading_eval.py --env-name SingleCombat --scenario selfplay \
+        --checkpoint results/selfplay/policy_checkpoint.pkl --steps 500 \
+        --backend distilled --interpret --repeats 5
 
 Restores the checkpoint (default results/heading/policy_checkpoint.pkl) into
 the package's F16SimRunner with the default RLConfig networks, on
@@ -20,6 +23,13 @@ at --n envs with the scenario's sensor noise, and prints one JSON line with
 --repeats evals (each eval draws its env seed from the runner's key or
 generator, so the repeats differ). The JAX PlanningEnv reads its aero
 backend from NEURALPLANE_AERO_BACKEND, which the tool sets to --backend.
+
+With --env-name SingleCombat the checkpoint flies both sides of
+SingleCombatEnv(scenario) deterministically (one policy on every agent, its
+GRU memory zeroed when a group resets, masks from the group's done flags),
+and each value is the ego team's mean reward per agent-step over --steps
+(`ego_mean_reward_per_agent_step`), each repeat from its own env seed. The
+JAX SingleCombatEnv also reads its backend from NEURALPLANE_AERO_BACKEND.
 
 `--package jax` runs neuralplane_tpu on the CPU; "stacked" is its CPU
 default, "pallas" the same 43 nets with the fused kernels' bf16 rounding
@@ -53,7 +63,11 @@ def jax_evals(args):
         from jax.experimental import pallas as pl
         orig = pl.pallas_call
         pl.pallas_call = lambda *a, **k: orig(*a, **{**k, "interpret": True})
-    if args.env_name == "Planning":
+    if args.env_name == "SingleCombat":
+        from neuralplane_tpu.envs import SingleCombatEnv
+        os.environ["NEURALPLANE_AERO_BACKEND"] = args.backend
+        env = SingleCombatEnv(num_envs=args.n, config=args.scenario)
+    elif args.env_name == "Planning":
         import pickle
         from neuralplane_tpu.envs import PlanningEnv
         os.environ["NEURALPLANE_AERO_BACKEND"] = args.backend
@@ -64,16 +78,73 @@ def jax_evals(args):
     else:
         env = ControlEnv(num_envs=args.n, config=args.scenario, model=args.model,
                          aero_backend=args.backend)
-    if args.interpret:
+    if args.interpret and args.env_name != "SingleCombat":
         env.config = env.config.replace(kernel_obs_noise=False, kernel_reset_draws=False)
     return env, F16SimRunner, RLConfig
+
+
+def jax_combat_values(args, env, runner):
+    """The ego team's mean reward per agent-step, JAX package."""
+    import jax
+    import jax.numpy as jnp
+    params = runner.train_state.params
+    m = env.num_agents
+
+    @jax.jit
+    def step(state, obs, h, masks):
+        a, h = runner.policy.act(params, obs, h, masks, deterministic=True)
+        state, out = env.step(state, a)
+        reset = (out.done | out.bad_done | out.exceed_time_limit).reshape(-1, m).any(1)
+        done = out.done.reshape(-1, m).any(1)
+        h = h * (1.0 - jnp.repeat(reset, m))[:, None, None]
+        masks = (1.0 - jnp.repeat(done, m))[:, None]
+        return state, out.obs, h, masks, out.reward.reshape(-1, m)[:, :m // 2].sum()
+
+    values = []
+    for _ in range(args.repeats):
+        state, obs = env.reset(runner.next_key())
+        h, _ = runner.policy.init_rnn_states(env.n)
+        masks, total = jnp.ones((env.n, 1)), 0.0
+        for _ in range(args.steps):
+            state, obs, h, masks, ego = step(state, obs, h, masks)
+            total += ego
+        values.append(float(total) / (env.n // 2 * args.steps))
+    return values
+
+
+def port_combat_values(args, env, runner):
+    """The ego team's mean reward per agent-step, the port."""
+    import torch
+    m = env.num_agents
+    values = []
+    with torch.no_grad():
+        for _ in range(args.repeats):
+            state, obs = env.reset(runner.next_seed())
+            h, _ = runner.policy.init_rnn_states(env.n)
+            masks = torch.ones((env.n, 1), device=env.device)
+            total = torch.zeros((), dtype=torch.float64, device=env.device)
+            for _ in range(args.steps):
+                a, h = runner.policy.act(obs, h, masks, deterministic=True)
+                state, out = env.step(state, a)
+                reset = (out.done | out.bad_done | out.exceed_time_limit).reshape(-1, m).any(1)
+                done = out.done.reshape(-1, m).any(1)
+                h = h * (~reset).float().repeat_interleave(m)[:, None, None]
+                masks = (~done).float().repeat_interleave(m)[:, None]
+                total += out.reward.reshape(-1, m)[:, :m // 2].sum()
+                obs = out.obs
+            values.append(float(total) / (env.n // 2 * args.steps))
+    return values
 
 
 def port_evals(args):
     from neuralplane_tpu_torch.algorithms.rl_config import RLConfig
     from neuralplane_tpu_torch.envs import ControlEnv
     from neuralplane_tpu_torch.runner import F16SimRunner
-    if args.env_name == "Planning":
+    if args.env_name == "SingleCombat":
+        from neuralplane_tpu_torch.envs import SingleCombatEnv
+        env = SingleCombatEnv(num_envs=args.n, config=args.scenario,
+                              aero_backend=args.backend, device=args.device)
+    elif args.env_name == "Planning":
         from neuralplane_tpu_torch.envs import PlanningEnv
         from neuralplane_tpu_torch.envs.planning import load_low_level_ckpt
         env = PlanningEnv(num_envs=args.n, config=args.scenario, model=args.model,
@@ -92,7 +163,8 @@ def main(argv=None) -> None:
                     default=os.path.join(REPO, "results", "heading", "policy_checkpoint.pkl"))
     ap.add_argument("--scenario", default="heading")
     ap.add_argument("--model", default="F16", choices=["F16", "UAV", "C172P"])
-    ap.add_argument("--env-name", default="Control", choices=["Control", "Planning"])
+    ap.add_argument("--env-name", default="Control",
+                    choices=["Control", "Planning", "SingleCombat"])
     ap.add_argument("--low-level-ckpt",
                     default=os.path.join(REPO, "results", "control", "policy_checkpoint.pkl"),
                     help="Planning: the frozen low-level control policy")
@@ -105,13 +177,16 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cpu", help="port: torch device")
     args = ap.parse_args(argv)
     env, runner_cls, cfg_cls = (jax_evals if args.package == "jax" else port_evals)(args)
-    values = []
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as run_dir:
         runner = runner_cls(env, cfg_cls(), run_dir=run_dir, model_dir=args.checkpoint)
         try:
-            for _ in range(args.repeats):
-                values.append(runner.eval(args.steps)["eval_average_episode_rewards"])
+            if args.env_name == "SingleCombat":
+                values = (jax_combat_values if args.package == "jax"
+                          else port_combat_values)(args, env, runner)
+            else:
+                values = [runner.eval(args.steps)["eval_average_episode_rewards"]
+                          for _ in range(args.repeats)]
         finally:
             runner.close()
     print(json.dumps({"package": args.package, "checkpoint": os.path.relpath(args.checkpoint, REPO),
@@ -120,7 +195,8 @@ def main(argv=None) -> None:
                       "backend": args.backend, "interpret": args.interpret,
                       "device": args.device if args.package == "port" else "cpu",
                       "noise_scale": env.config.noise_scale,
-                      "eval_average_episode_rewards": values,
+                      ("ego_mean_reward_per_agent_step" if args.env_name == "SingleCombat"
+                       else "eval_average_episode_rewards"): values,
                       "mean": sum(values) / len(values),
                       "seconds": time.perf_counter() - t0}))
 
