@@ -57,12 +57,30 @@ Phases, each reported on its own line:
      one collect step profiled;
  22. the JAX package's committed 1v1 policy (results/selfplay) flying both
      sides of SingleCombatEnv(1000, "selfplay", "distilled") for 500 steps,
-     the ego team's mean reward per agent-step against the JAX package's.
+     the ego team's mean reward per agent-step against the JAX package's;
+ 23. as 20 on the missile envs at the widths of their run scripts,
+     SingleCombatShootEnv(1000, "selfplay_shoot") and
+     MultipleCombatShootEnv(500, "multiple_selfplay_shoot"), the shoot bit
+     on 30% of the rows (launches and hits per step reported), and the one
+     step kernel vs plain from a state with missiles in the air also on the
+     evadable variants (missile state, ammo, cooldown and counts);
+ 24. 1v1 missile self-play training at scripts/train_shoot.sh's
+     configuration (PPO, the ShootTuple head with its Beta launch prior)
+     through the CLI for one episode, then one stochastic ELO eval at 100
+     steps; one collect step profiled;
+ 25. 2v2 missile MAPPO self-play at scripts/train_multiplecombat_shoot.sh's
+     configuration, the same way; the MAPPO policy on the card against its
+     CPU copy;
+ 26. the committed missile policies (results/shoot_1v1, the actor of
+     results/mappo_2v2_shoot) flying both sides of their envs for 500
+     steps: the ego mean reward per agent-step and the missile launches
+     (and, for the team, hits) per step against the JAX package's.
 
 The launch counters are set to 0 just before phases 6, 7, 12, 13, 14, 15,
-16, 17, 18, each eval of 19, each timed run of 20, the run of 21 and the
-eval of 22, and read just after; a kernel of the path that did not launch,
-or one that launched off its path in 17-22, fails the run. Any
+16, 17, 18, each eval of 19, each timed run of 20 and 23, the runs of 21,
+24 and 25 and the evals of 22 and 26, and read just after; a kernel of the
+path that did not launch, or one that launched off its path in 17-26,
+fails the run. Any
 mismatch, non-finite value or failed check exits non-zero. The
 second-to-last line is the kernel table as JSON, the last line the device
 record.
@@ -813,28 +831,41 @@ EVAL_REL_LIMIT = 0.10
 POLICY_REL = 1e-4
 
 
+def dist_tensors(dist) -> list:
+    """The parameter tensors of an action distribution (nested NamedTuples
+    of tensors: DiagGaussian, Categorical, Bernoulli and their products)."""
+    if isinstance(dist, torch.Tensor):
+        return [dist]
+    return [t for part in dist for t in dist_tensors(part)]
+
+
 def policy_card_vs_cpu(policy, batch, rows: int = 4096, length: int = 8) -> float:
     """The policy's actor and critic on the card and a CPU copy of the same
     modules, on `rows` rows of a collected batch: one step and one chunk of
-    `length` steps. Returns the largest |card - cpu| / RMS(cpu) over the
-    outputs; raises above POLICY_REL."""
+    `length` steps (the critic on the batch's share_obs where it has them).
+    Returns the largest |card - cpu| / RMS(cpu) over the outputs (each
+    tensor of the action distribution, the values, the hidden states);
+    raises above POLICY_REL."""
     import copy
     cpu = copy.deepcopy(policy).to("cpu")
     obs, masks = batch.obs[:length, :rows], batch.masks[:length, :rows]
+    cent = getattr(batch, "share_obs", batch.obs)[:length, :rows]
     h_a, h_c = batch.rnn_states_actor[0, :rows], batch.rnn_states_critic[0, :rows]
     with torch.no_grad():
         outs = {}
         for dev_name, pol in (("cuda", policy), ("cpu", cpu)):
             def d(t):
                 return t.to(dev_name)
-            a_step = pol.actor.step(d(obs[0]), d(h_a), d(masks[0]))
-            c_step = pol.critic.step(d(obs[0]), d(h_c), d(masks[0]))
-            a_seq = pol.actor.seq(d(obs), d(h_a), d(masks))
-            c_seq = pol.critic.seq(d(obs), d(h_c), d(masks))
-            outs[dev_name] = {"actor_step mean": a_step[0], "actor_step h": a_step[2],
-                              "critic_step value": c_step[0], "critic_step h": c_step[1],
-                              "actor_seq mean": a_seq[0], "actor_seq h": a_seq[2],
-                              "critic_seq value": c_seq[0], "critic_seq h": c_seq[1]}
+            a_step, h_step = pol.actor.dist_step(d(obs[0]), d(h_a), d(masks[0]))
+            c_step = pol.critic.step(d(cent[0]), d(h_c), d(masks[0]))
+            a_seq = pol.actor.dist_seq(d(obs), d(h_a), d(masks))
+            c_seq = pol.critic.seq(d(cent), d(h_c), d(masks))
+            outs[dev_name] = {"actor_step h": h_step, "critic_step value": c_step[0],
+                              "critic_step h": c_step[1], "critic_seq value": c_seq[0],
+                              "critic_seq h": c_seq[1]}
+            for tag, dist in (("actor_step", a_step), ("actor_seq", a_seq)):
+                for i, t in enumerate(dist_tensors(dist)):
+                    outs[dev_name][f"{tag} dist {i}"] = t
     worst = 0.0
     for name, want in outs["cpu"].items():
         got = outs["cuda"][name].cpu().double()
@@ -1328,6 +1359,40 @@ SELFPLAY_CKPT = os.path.join(REPO, "results", "selfplay", "policy_checkpoint.pkl
 JAX_SELFPLAY_EVAL = 0.0125010875
 SELFPLAY_REL_LIMIT = 0.01
 SELFPLAY_EVAL_STEPS = 500
+# The missile envs (phases 23-26): the share of rows with the shoot bit set
+# in the random actions; the graded fuse's pk_sum, kernel against plain, in
+# absolute terms per unit of pk_sum (the binary fuse's is exact).
+SHOOT_SHARE = 0.3
+PK_ABS = 1e-3
+# the self-play ELO evals (phases 21, 24, 25), cut from max_steps = 2000
+ELO_EVAL_STEPS = 100
+# Phase 26: the JAX package's committed missile policies flying both sides
+# deterministically on the CPU, NEURALPLANE_AERO_BACKEND=distilled (the
+# Pallas xdot kernel in interpret mode), 500 steps, the Beta prior on, by
+# `python tools/heading_eval.py --package jax --env-name SingleCombatShoot
+# --scenario selfplay_shoot --checkpoint results/shoot_1v1/policy_checkpoint.pkl
+# --n 1000 --steps 500 --backend distilled --interpret --repeats 5` and
+# `... --env-name MultipleCombatShoot --scenario multiple_selfplay_shoot
+# --checkpoint results/mappo_2v2_shoot/policy_checkpoint.pkl --n 500 ...`.
+# Each limit is 2.5 times the largest key's distance from the keys' mean,
+# rounded up to a whole percent. The ego mean reward per agent-step is the
+# mean of the runner's first five keys: 1v1 0.0106980, 0.0103234,
+# 0.0111733, 0.0079924, 0.0095753; 2v2 0.0027069, 0.0024590, 0.0051424,
+# -0.0018027, 0.0000521 (one policy on both sides of the team game is near
+# zero-sum, so its reward's limit is 514% and the launches and hits carry
+# the check). Missile launches and hits per step are rare events whose
+# rate varies with the env seed (the 1v1 launches of the first five keys
+# span 0.116-0.154, of twenty 0.116-0.208), so theirs come from the first
+# twenty keys (`--repeats 20`): 1v1 launches 0.116-0.208, mean 0.1553;
+# 2v2 launches 2.704-2.968, mean 2.8266, hits 0.656-0.756, mean 0.7002
+# (the 1v1's hits, 0.004-0.018, are too few to hold).
+SHOOT_FLY = (
+    ("shoot_1v1", "SingleCombatShootEnv", 1000, "selfplay_shoot", 11,
+     dict(reward=0.009952481542968749, reward_limit=0.50, launches=0.1553,
+          launches_limit=0.85, hits=0.0114, hits_limit=None)),
+    ("mappo_2v2_shoot", "MultipleCombatShootEnv", 500, "multiple_selfplay_shoot", 3,
+     dict(reward=0.001711543962097168, reward_limit=5.14, launches=2.8266,
+          launches_limit=0.13, hits=0.7002, hits_limit=0.20)))
 
 
 def combat_env(cls, n_envs: int, config: str):
@@ -1347,16 +1412,30 @@ def step_under_sync_debug(env, st, a, what: str) -> None:
         torch.cuda.set_sync_debug_mode("default")
 
 
+def random_actions(env, g: torch.Generator, fire_share: float = SHOOT_SHARE):
+    """Uniform actions in [-1, 1]; on a missile env uniform bin indices and
+    the shoot bit on `fire_share` of the rows."""
+    nvec = getattr(getattr(env, "action_space", None), "nvec", None)
+    if nvec is None:
+        return torch.rand((env.n, env.num_actions), generator=g, device="cuda") * 2 - 1
+    u = torch.rand((env.n, 5), generator=g, device="cuda")
+    idx = (u[:, :4] * torch.tensor(nvec, device="cuda")).floor()
+    return torch.cat([idx, (u[:, 4:] < fire_share).float()], dim=1)
+
+
 def combat_step_vs_plain(env, name: str, warm: int = 5, phase: int = 20) -> None:
-    """From a state carried through `warm` steps of random actions, one more
-    step with nlplant_distilled and the same step with its plain version on
-    the card (same generator state, same actions), under COMBAT_LIMITS."""
+    """From a state carried through `warm` steps of random actions (on a
+    missile env, steps that fire), one more step with nlplant_distilled and
+    the same step with its plain version on the card (same generator state,
+    same actions), under COMBAT_LIMITS; on a missile env also the missiles'
+    positions and velocities, and ammo, cooldown, the active slots and the
+    launch and hit counts exactly."""
     import functools
     from neuralplane_tpu_torch.ops import aero_cuda
     g = torch.Generator(device="cuda").manual_seed(5)
 
     def act():
-        return torch.rand((env.n, env.num_actions), generator=g, device="cuda") * 2 - 1
+        return random_actions(env, g)
     st, _ = env.reset(5)
     for _ in range(warm):
         st, _ = env.step(st, act())
@@ -1375,9 +1454,20 @@ def combat_step_vs_plain(env, name: str, warm: int = 5, phase: int = 20) -> None
     flags = [float((getattr(got, f) != getattr(want, f)).float().mean())
              for f in ("done", "bad_done", "exceed_time_limit")]
     agree = (got.done == want.done) & (got.bad_done == want.bad_done)
-    pairs = (("obs", got.obs, want.obs), ("reward", got.reward[agree], want.reward[agree]),
+    pairs = [("obs", got.obs, want.obs), ("reward", got.reward[agree], want.reward[agree]),
              ("state", got_st.model.s, want_st.model.s),
-             ("blood", got_st.blood, want_st.blood))
+             ("blood", got_st.blood, want_st.blood)]
+    missiles = hasattr(got_st, "missiles")
+    if missiles:
+        in_air = int(st.missiles.active.sum())
+        pairs += [("missile pos", got_st.missiles.pos, want_st.missiles.pos),
+                  ("missile vel", got_st.missiles.vel, want_st.missiles.vel)]
+        exact = {k: bool(torch.equal(a, b)) for k, a, b in (
+            ("ammo", got_st.ammo, want_st.ammo), ("cooldown", got_st.cooldown, want_st.cooldown),
+            ("active", got_st.missiles.active, want_st.missiles.active),
+            ("launches", got.info["shoot/launches"], want.info["shoot/launches"]),
+            ("hits", got.info["shoot/hits"], want.info["shoot/hits"]))}
+        pk = (float(got.info["shoot/pk_sum"]), float(want.info["shoot/pk_sum"]))
     errs, fail = {}, None
     for what, gv, wv in pairs:
         try:
@@ -1393,39 +1483,69 @@ def combat_step_vs_plain(env, name: str, warm: int = 5, phase: int = 20) -> None
         raise fail
     if max(flags) > COMBAT_FLAG_SHARE:
         raise Mismatch(f"{name} step: flags differ on {max(flags):.2e} of rows")
+    if missiles:
+        log(f"phase {phase} {name}: {in_air} missiles in the air before the step; exact "
+            f"{exact}; launches {int(got.info['shoot/launches'])}, hits "
+            f"{int(got.info['shoot/hits'])}, pk_sum kernel {pk[0]} plain {pk[1]}")
+        pk_tol = 0.0 if env.config.missile_fuse_outer == 0.0 else PK_ABS * max(1.0, pk[1])
+        if not all(exact.values()) or abs(pk[0] - pk[1]) > pk_tol or in_air == 0:
+            raise Mismatch(f"{name} step: missile state or counts differ ({exact}, pk_sum "
+                           f"{pk}), or no missile in the air")
 
 
-def phase_combat(table, steps: int = 200, phase: int = 20) -> None:
-    """Both combat envs on the card: kernel against plain through one step,
-    then `steps` timed steps of uniform random actions with the counters set
-    to 0 just before and read just after, a profile of 5 steps and one step
-    under the sync debug mode."""
-    from neuralplane_tpu_torch.envs import MultipleCombatEnv, SingleCombatEnv
-    cases = (("SingleCombatEnv(selfplay)", SingleCombatEnv, 1000, "selfplay", 11,
-              "launches_combat"),
-             ("MultipleCombatEnv(multiple_selfplay)", MultipleCombatEnv, 500,
-              "multiple_selfplay", 3, "launches_combat_team"))
+COMBAT_CASES = (("SingleCombatEnv(selfplay)", "SingleCombatEnv", 1000, "selfplay", 11,
+                 "launches_combat"),
+                ("MultipleCombatEnv(multiple_selfplay)", "MultipleCombatEnv", 500,
+                 "multiple_selfplay", 3, "launches_combat_team"))
+# the widths of scripts/train_shoot.sh and train_multiplecombat_shoot.sh
+SHOOT_CASES = (("SingleCombatShootEnv(selfplay_shoot)", "SingleCombatShootEnv", 1000,
+                "selfplay_shoot", 11, "launches_shoot"),
+               ("MultipleCombatShootEnv(multiple_selfplay_shoot)", "MultipleCombatShootEnv",
+                500, "multiple_selfplay_shoot", 3, "launches_shoot_team"))
+SHOOT_EVADABLE = (("SingleCombatShootEnv(selfplay_shoot_evadable)", "SingleCombatShootEnv",
+                   1000, "selfplay_shoot_evadable"),
+                  ("MultipleCombatShootEnv(multiple_selfplay_shoot_evadable)",
+                   "MultipleCombatShootEnv", 500, "multiple_selfplay_shoot_evadable"))
+
+
+def phase_combat(table, cases=COMBAT_CASES, steps: int = 200, phase: int = 20) -> None:
+    """Combat envs on the card: kernel against plain through one step, then
+    `steps` timed steps of random actions (on the missile envs the shoot bit
+    on SHOOT_SHARE of the rows) with the counters set to 0 just before and
+    read just after, a profile of 5 steps and one step under the sync debug
+    mode."""
+    from neuralplane_tpu_torch import envs
     for name, cls, n_envs, config, per_step, key in cases:
-        env = combat_env(cls, n_envs, config)
+        env = combat_env(getattr(envs, cls), n_envs, config)
         combat_step_vs_plain(env, name, phase=phase)
         g = torch.Generator(device="cuda").manual_seed(7)
-        actions = [torch.rand((env.n, env.num_actions), generator=g, device="cuda") * 2 - 1
-                   for _ in range(steps + 1)]
+        actions = [random_actions(env, g) for _ in range(steps + 1)]
         st, _ = env.reset(7)
         st, _ = env.step(st, actions[0])   # warm-up
+        shots = torch.zeros(2, dtype=torch.int64, device="cuda")
         torch.cuda.synchronize()
         zero_counts()
         t0 = time.perf_counter()
         for a in actions[1:]:
             st, out = env.step(st, a)
+            if "shoot/launches" in out.info:
+                shots += torch.stack([out.info["shoot/launches"], out.info["shoot/hits"]])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = read_counts()
         finite = bool(torch.isfinite(st.model.s).all() and torch.isfinite(out.obs).all()
                       and torch.isfinite(out.reward).all())
+        fired = ""
+        if "shoot/launches" in out.info:
+            launched, hit = shots.tolist()
+            fired = (f", missile launches {launched / steps:.3f} and hits {hit / steps:.3f} "
+                     f"per step")
+            if launched == 0 or hit == 0:
+                raise Mismatch(f"{name}: no launch or no hit in {steps} steps")
         log(f"phase {phase} {name} distilled n={env.n}: {steps} steps of random actions "
             f"{wall * 1e3 / steps:.4f} ms/step, {env.n * env.inner_steps * steps / wall:.4e} "
-            f"inner FDM steps/s (aircraft x inner steps), launches {counts}, finite {finite}")
+            f"inner FDM steps/s (aircraft x inner steps){fired}, launches {counts}, "
+            f"finite {finite}")
         check_counts(f"{name} {steps} steps", counts, {"nlplant_distilled": per_step * steps})
         if not finite:
             raise Mismatch(f"{name}: non-finite state, obs or reward")
@@ -1445,19 +1565,16 @@ def phase_combat(table, steps: int = 200, phase: int = 20) -> None:
         log(f"phase {phase} one {name} step under sync debug mode 'error': no host sync OK")
 
 
-def phase_selfplay_train(table, eval_steps: int = 100, phase: int = 21) -> None:
+def phase_selfplay_train(table, phase: int = 21) -> None:
     """1v1 self-play training on the card at the repo's run configuration
     (scripts/train_selfplay.sh: 1000 envs, buffer 1000, chunks of 8, 5
     minibatches, 16 epochs, lr 3e-4, entropy 1e-3, max grad norm 2,
     min_log_std -2.3, FSP, one opponent, tie band 1.0), built by the CLI's
     make_env and run by SelfplayRunner.run for one episode on "distilled";
-    then one eval_elo at `eval_steps` steps (the run's own horizon is
+    then one eval_elo at ELO_EVAL_STEPS steps (the run's own horizon is
     max_steps = 2000). Counters set to 0 just before the run and read just
     after: the collect launches nlplant_distilled 11 times per step, the
     reset that starts the run once more, env_step never."""
-    import tempfile
-    from neuralplane_tpu_torch.runner import SelfplayRunner
-    from neuralplane_tpu_torch.scripts import train as train_cli
     n, T = 1000, 1000
     argv = ["--env-name", "SingleCombat", "--scenario-name", "selfplay", "--use-selfplay",
             "--selfplay-algorithm", "fsp", "--n-choose-opponents", "1", "--elo-tie-band",
@@ -1467,28 +1584,7 @@ def phase_selfplay_train(table, eval_steps: int = 100, phase: int = 21) -> None:
             "--entropy-coef", "1e-3", "--max-grad-norm", "2", "--min-log-std", "-2.3",
             "--data-chunk-length", "8", "--log-interval", "1", "--save-interval", "1",
             "--aero-backend", "distilled", "--device", "cuda"]
-    args = train_cli.get_parser().parse_args(argv)
-    cfg = train_cli.args_to_config(args)
-    env = train_cli.make_env(args)
-    with tempfile.TemporaryDirectory() as run_dir:
-        runner = timed_runner(SelfplayRunner)(env, cfg, run_dir=run_dir)
-        torch.cuda.synchronize()
-        held_mib = torch.cuda.memory_allocated() / 2 ** 20
-        torch.cuda.reset_peak_memory_stats()
-        zero_counts()
-        try:
-            runner.run()
-        finally:
-            runner.close()
-        counts = read_counts()
-        peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
-        with open(os.path.join(run_dir, "metrics.jsonl"), encoding="utf-8") as f:
-            records = [json.loads(line) for line in f]
-        saved = sorted(os.listdir(runner.save_dir))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        elo = runner.eval_elo(eval_steps)
-        eval_s = time.perf_counter() - t0
+    runner, env, counts, peak_mib, held_mib, records, saved, elo, eval_s = selfplay_run(argv)
     c_s, t_s = runner.times["collect"][0], runner.times["train"][0]
     collect_counts = runner.collect_launches[0]
     log(f"phase {phase} self-play training SingleCombatEnv(selfplay, distilled) {n} envs "
@@ -1497,8 +1593,9 @@ def phase_selfplay_train(table, eval_steps: int = 100, phase: int = 21) -> None:
         f"agent-steps/s, peak device memory {peak_mib:.1f} MiB ({held_mib:.1f} MiB of it held "
         f"before the phase); launches in the run {counts}, in the collect {collect_counts}; "
         f"checkpoints {saved}; metrics {json.dumps(records[0]) if records else None}")
-    log(f"phase {phase} eval_elo at {eval_steps} steps (cut from max_steps "
-        f"{env.config.max_steps}) in {eval_s:.3f} s ({eval_s * 1e3 / eval_steps:.4f} ms/step): "
+    log(f"phase {phase} eval_elo at {ELO_EVAL_STEPS} steps (cut from max_steps "
+        f"{env.config.max_steps}) in {eval_s:.3f} s ({eval_s * 1e3 / ELO_EVAL_STEPS:.4f} "
+        f"ms/step): "
         f"{json.dumps(elo)}; pool {json.dumps(runner.policy_pool)}")
     check_counts("self-play collect", collect_counts, {"nlplant_distilled": 11 * T})
     check_counts("self-play run", counts, {"nlplant_distilled": 11 * T + 1})
@@ -1542,8 +1639,8 @@ def phase_selfplay_fly(table, n_envs: int = 1000, phase: int = 22) -> None:
     zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    value, = port_combat_values(types.SimpleNamespace(repeats=1, steps=SELFPLAY_EVAL_STEPS),
-                                env, runner)
+    (value,), _ = port_combat_values(
+        types.SimpleNamespace(repeats=1, steps=SELFPLAY_EVAL_STEPS), env, runner)
     wall = time.perf_counter() - t0
     counts = read_counts()
     ref = JAX_SELFPLAY_EVAL
@@ -1559,6 +1656,173 @@ def phase_selfplay_fly(table, n_envs: int = 1000, phase: int = 22) -> None:
         raise Mismatch(f"phase {phase}: the port's 1v1 eval is {rel:.4f} away from the JAX "
                        f"package's (limit {SELFPLAY_REL_LIMIT})")
     table["nlplant_distilled"]["launches_selfplay_eval"] = counts["nlplant_distilled"]
+
+
+def phase_shoot(table, steps: int = 200, phase: int = 23) -> None:
+    """Both missile envs at the widths of their run scripts as phase 20 does
+    the guns-only ones, and the same kernel-against-plain step on the
+    evadable variants."""
+    from neuralplane_tpu_torch import envs
+    phase_combat(table, SHOOT_CASES, steps=steps, phase=phase)
+    for name, cls, n_envs, config in SHOOT_EVADABLE:
+        combat_step_vs_plain(combat_env(getattr(envs, cls), n_envs, config), name, phase=phase)
+
+
+def selfplay_run(argv):
+    """A self-play run built by the CLI from `argv` (make_env, the runner the
+    CLI picks) for one episode on the card, the counters set to 0 just
+    before and read just after, then one eval_elo at ELO_EVAL_STEPS.
+    Returns (runner, env, counts, peak MiB, held MiB, records, checkpoint
+    files, eval result, eval s)."""
+    import tempfile
+    from neuralplane_tpu_torch.runner import MAPPOSelfplayRunner, SelfplayRunner
+    from neuralplane_tpu_torch.scripts import train as train_cli
+    args = train_cli.get_parser().parse_args(argv)
+    cfg = train_cli.args_to_config(args)
+    env = train_cli.make_env(args)
+    base = MAPPOSelfplayRunner if args.algorithm_name == "mappo" else SelfplayRunner
+    with tempfile.TemporaryDirectory() as run_dir:
+        runner = timed_runner(base)(env, cfg, run_dir=run_dir)
+        torch.cuda.synchronize()
+        held_mib = torch.cuda.memory_allocated() / 2 ** 20
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        try:
+            runner.run()
+        finally:
+            runner.close()
+        counts = read_counts()
+        peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+        with open(os.path.join(run_dir, "metrics.jsonl"), encoding="utf-8") as f:
+            records = [json.loads(line) for line in f]
+        saved = sorted(os.listdir(runner.save_dir))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        elo = runner.eval_elo(ELO_EVAL_STEPS)
+        eval_s = time.perf_counter() - t0
+    return runner, env, counts, peak_mib, held_mib, records, saved, elo, eval_s
+
+
+SHOOT_TRAIN_ARGS = ["--use-selfplay", "--use-prior", "--selfplay-algorithm", "fsp",
+                    "--n-choose-opponents", "1", "--elo-tie-band", "50", "--use-eval",
+                    "--eval-interval", "10", "--eval-stochastic", "--buffer-size", "1000",
+                    "--num-mini-batch", "5", "--ppo-epoch", "16", "--lr", "3e-4",
+                    "--gamma", "0.99", "--entropy-coef", "1e-3", "--max-grad-norm", "2",
+                    "--data-chunk-length", "8", "--log-interval", "1", "--save-interval", "20",
+                    "--aero-backend", "distilled", "--device", "cuda"]
+
+
+def phase_shoot_train(table, team: bool, phase: int) -> None:
+    """Missile self-play training on the card at a committed run's
+    configuration, cut to one episode: scripts/train_shoot.sh (1v1, 1000
+    envs, PPO) or, with `team`, scripts/train_multiplecombat_shoot.sh (2v2,
+    500 envs, MAPPO): buffer 1000, chunks of 8, 5 minibatches, 16 epochs,
+    lr 3e-4, entropy 1e-3, max grad norm 2, FSP, one opponent, tie band 50,
+    the Beta launch prior, stochastic ELO eval (cut to ELO_EVAL_STEPS
+    steps). The collect launches nlplant_distilled 11 (1v1) or 3 (team)
+    times per step, the run's reset once more, env_step never; the team's
+    MAPPO policy on the card is held against its CPU copy."""
+    T, per_step = 1000, (3 if team else 11)
+    if team:
+        n, what = 500, "MAPPO 2v2 MultipleCombatShootEnv(multiple_selfplay_shoot, distilled)"
+        argv = ["--env-name", "MultipleCombatShoot", "--scenario-name",
+                "multiple_selfplay_shoot", "--algorithm-name", "mappo"]
+    else:
+        n, what = 1000, "PPO 1v1 SingleCombatShootEnv(selfplay_shoot, distilled)"
+        argv = ["--env-name", "SingleCombatShoot", "--scenario-name", "selfplay_shoot"]
+    argv += ["--n-rollout-threads", str(n), "--num-env-steps", str(T * n * (2 if team else 1)),
+             *SHOOT_TRAIN_ARGS]
+    runner, env, counts, peak_mib, held_mib, records, saved, elo, eval_s = selfplay_run(argv)
+    c_s, t_s = runner.times["collect"][0], runner.times["train"][0]
+    collect_counts = runner.collect_launches[0]
+    log(f"phase {phase} missile self-play training {what} {n} envs ({runner.n_ego} ego "
+        f"agents), buffer {T}: collect {c_s * 1e3 / T:.4f} ms/step ({c_s:.3f} s), update "
+        f"{t_s:.3f} s, {T * runner.n_ego / (c_s + t_s):.4e} training agent-steps/s, peak "
+        f"device memory {peak_mib:.1f} MiB ({held_mib:.1f} MiB of it held before the phase); "
+        f"launches in the run {counts}, in the collect {collect_counts}; checkpoints {saved}; "
+        f"metrics {json.dumps(records[0]) if records else None}")
+    log(f"phase {phase} eval_elo at {ELO_EVAL_STEPS} steps (cut from max_steps "
+        f"{env.config.max_steps}), stochastic, in {eval_s:.3f} s "
+        f"({eval_s * 1e3 / ELO_EVAL_STEPS:.4f} ms/step): {json.dumps(elo)}; pool "
+        f"{json.dumps(runner.policy_pool)}")
+    check_counts(f"{what} collect", collect_counts, {"nlplant_distilled": per_step * T})
+    check_counts(f"{what} run", counts, {"nlplant_distilled": per_step * T + 1})
+    finite = all(math.isfinite(v) for rec in records for v in rec.values())
+    pool = [f for f in saved if f.startswith("actor_")]
+    if not finite or len(records) != 1 or "shoot_launches" not in records[0] \
+            or pool != ["actor_0.pt", "actor_1.pt"] or not math.isfinite(elo["latest_elo"]):
+        raise Mismatch(f"{what}: non-finite metric, missing record, shoot counter or pool "
+                       "entry")
+    table["nlplant_distilled"]["launches_shoot_training_team" if team else
+                               "launches_shoot_training"] = collect_counts["nlplant_distilled"]
+    if team:
+        rel = policy_card_vs_cpu(runner.policy, runner.last_batch)
+        log(f"phase {phase} MAPPO policy card vs CPU (4096 rows, step and 8-step chunk; the "
+            f"centralized critic on share_obs) max |err|/rms {rel:.2e} (limit {POLICY_REL})")
+    carry = [runner.init_carry(runner.next_seed())]
+
+    @torch.no_grad()
+    def collect_step():
+        carry[0] = runner._collect_step(carry[0])[0]
+    busy, wall, launches, top = profile_calls(collect_step, 1)
+    if busy:
+        log(f"phase {phase} profile one collect step: device busy {busy:.1f} us of "
+            f"{wall:.1f} us wall, idle share {1 - busy / wall:.3f}, {launches:g} device "
+            f"launches; {top}")
+    else:
+        log(f"phase {phase} profile: the profiler saw no device time (not measured)")
+
+
+def phase_shoot_fly(table, phase: int = 26) -> None:
+    """The committed missile policies (read without JAX) flying both sides
+    of their envs on "distilled" for SELFPLAY_EVAL_STEPS deterministic steps
+    by tools/heading_eval.py's own loop, the Beta prior on:
+    results/shoot_1v1 on SingleCombatShootEnv(1000, "selfplay_shoot"),
+    results/mappo_2v2_shoot's actor on MultipleCombatShootEnv(500,
+    "multiple_selfplay_shoot"). The ego mean reward per agent-step and the
+    missile launches per step within their limits of the JAX package's."""
+    import tempfile
+    import types
+    from neuralplane_tpu_torch import envs
+    from neuralplane_tpu_torch.algorithms.rl_config import RLConfig
+    from neuralplane_tpu_torch.runner import F16SimRunner
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    from heading_eval import port_combat_values
+    for name, cls, n_envs, config, per_step, ref in SHOOT_FLY:
+        env = combat_env(getattr(envs, cls), n_envs, config)
+        with tempfile.TemporaryDirectory() as run_dir:
+            runner = F16SimRunner(env, RLConfig(use_prior=True), run_dir=run_dir,
+                                  model_dir=os.path.join(REPO, "results", name,
+                                                         "policy_checkpoint.pkl"))
+            runner.close()
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (value,), ((launched, hit),) = port_combat_values(
+            types.SimpleNamespace(repeats=1, steps=SELFPLAY_EVAL_STEPS), env, runner)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        rel = abs(value - ref["reward"]) / abs(ref["reward"])
+        rel_l = abs(launched - ref["launches"]) / ref["launches"]
+        rel_h = abs(hit - ref["hits"]) / ref["hits"]
+        log(f"phase {phase} JAX-trained missile policy (results/{name}) flying both sides of "
+            f"{cls}({n_envs}, {config}), deterministic: ego mean reward per agent-step "
+            f"{value:.6f} (the JAX package on the CPU: {ref['reward']}, relative difference "
+            f"{rel:.4f}, limit {ref['reward_limit']}); missile launches per step "
+            f"{launched:.3f} (JAX {ref['launches']}, relative difference {rel_l:.4f}, limit "
+            f"{ref['launches_limit']}), hits per step {hit:.3f} (JAX {ref['hits']}, relative "
+            f"difference {rel_h:.4f}, limit {ref['hits_limit']}); "
+            f"n={env.n}, {SELFPLAY_EVAL_STEPS} steps in {wall:.3f} s "
+            f"({wall * 1e3 / SELFPLAY_EVAL_STEPS:.4f} ms/step); launches {counts}")
+        check_counts(f"results/{name} eval", counts,
+                     {"nlplant_distilled": per_step * SELFPLAY_EVAL_STEPS + 1})
+        if not math.isfinite(value) or rel > ref["reward_limit"] \
+                or rel_l > ref["launches_limit"] \
+                or (ref["hits_limit"] is not None and rel_h > ref["hits_limit"]):
+            raise Mismatch(f"phase {phase}: results/{name} in the port is {rel:.4f} (reward), "
+                           f"{rel_l:.4f} (launches) and {rel_h:.4f} (hits) away from the JAX "
+                           "package's eval")
+        table["nlplant_distilled"][f"launches_{name}_eval"] = counts["nlplant_distilled"]
 
 
 def main(argv=None) -> int:
@@ -1625,6 +1889,12 @@ def main(argv=None) -> int:
     phase_selfplay_train(table)
     phase_selfplay_fly(table)
     log(f"phases 20-22: {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    phase_shoot(table)
+    phase_shoot_train(table, team=False, phase=24)
+    phase_shoot_train(table, team=True, phase=25)
+    phase_shoot_fly(table)
+    log(f"phases 23-26: {time.perf_counter() - t0:.1f} s wall")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -41,6 +41,7 @@ from torch import nn
 from torch.nn.utils import skip_init
 
 from .rl_config import RLConfig
+from .utils.distributions import DiagGaussian
 
 ACTIVATIONS = {
     "tanh": torch.tanh,
@@ -277,6 +278,16 @@ class Actor(_Net):
         feat, hT = self.trunk.seq(obs, h0, masks)
         mean, log_std = self.head(feat)
         return mean, log_std, hT
+
+    def dist_step(self, obs, h, mask) -> Tuple[DiagGaussian, torch.Tensor]:
+        """`step` as (distribution, new_h), the interface of every actor
+        (algorithms/heads.py:HeadActor for the other action spaces)."""
+        mean, log_std, h = self.step(obs, h, mask)
+        return DiagGaussian(mean, log_std), h
+
+    def dist_seq(self, obs, h0, masks) -> DiagGaussian:
+        mean, log_std, _ = self.seq(obs, h0, masks)
+        return DiagGaussian(mean, log_std)
 
     @torch.no_grad()
     def init_(self, g: torch.Generator) -> None:

@@ -43,13 +43,24 @@ class PPOTrainer:
                                           betas=(0.9, 0.999), eps=1e-8)
         self.step = 0
 
+    def _chunk_arrays(self, batch: RolloutBatch, returns, advantages) -> Tuple:
+        """The batch's recurrent chunks, [C, L, ...] with the two initial
+        rnn states [C, layers, H] last (MAPPOTrainer adds its own arrays)."""
+        return make_chunks(batch, returns, advantages, self.cfg.data_chunk_length)
+
     # ---- loss over one recurrent-chunk minibatch ([L, N, ...] layout) ----
+    def _evaluate(self, sample: Tuple):
+        """(values, action_log_probs, entropy) of a minibatch's chunks."""
+        obs, actions, masks, *_, h0_actor, h0_critic = sample
+        return self.policy.evaluate_actions(obs, h0_actor, h0_critic, actions, masks)
+
+    def _entropy_loss(self, entropy: torch.Tensor, sample: Tuple) -> torch.Tensor:
+        return -entropy.mean()
+
     def _loss(self, sample: Tuple) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         cfg = self.cfg
-        (obs, actions, masks, old_logp, advs, rets, vpreds,
-         h0_actor, h0_critic) = sample
-        values, logp, entropy = self.policy.evaluate_actions(
-            obs, h0_actor, h0_critic, actions, masks)
+        old_logp, advs, rets, vpreds = sample[3:7]
+        values, logp, entropy = self._evaluate(sample)
 
         ratio = torch.exp(logp - old_logp)
         surr1 = ratio * advs
@@ -64,7 +75,7 @@ class PPOTrainer:
         else:
             value_loss = 0.5 * ((rets - values) ** 2).mean()
 
-        entropy_loss = -entropy.mean()
+        entropy_loss = self._entropy_loss(entropy, sample)
         loss = (policy_loss + value_loss * cfg.value_loss_coef
                 + entropy_loss * cfg.entropy_coef)
         metrics = {"policy_loss": policy_loss, "value_loss": value_loss,
@@ -105,7 +116,7 @@ class PPOTrainer:
             returns = compute_returns(batch, cfg.gamma, cfg.gae_lambda,
                                       cfg.use_gae, cfg.use_proper_time_limits)
             advantages = compute_advantages(returns, batch.value_preds)
-            chunks = make_chunks(batch, returns, advantages, cfg.data_chunk_length)
+            chunks = self._chunk_arrays(batch, returns, advantages)
         num_chunks = chunks[0].shape[0]
         mb_size = num_chunks // cfg.num_mini_batch
         used = mb_size * cfg.num_mini_batch

@@ -49,9 +49,13 @@ class Categorical(NamedTuple):
         return torch.softmax(self.logits, dim=-1)
 
     def sample(self, generator: torch.Generator) -> torch.Tensor:
-        flat = self.probs.reshape(-1, self.logits.shape[-1])
-        idx = torch.multinomial(flat, 1, generator=generator)
-        return idx.reshape(*self.logits.shape[:-1], 1)
+        """Gumbel-max, as jax.random.categorical: argmax(logits + G) with
+        G = -log(-log(u)). (torch.multinomial checks its input with a read
+        back to the host, which a rollout step must not make.)"""
+        u = torch.rand(self.logits.shape, generator=generator,
+                       device=self.logits.device, dtype=self.logits.dtype)
+        gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+        return (self.logits + gumbel).argmax(-1, keepdim=True)
 
     def mode(self) -> torch.Tensor:
         return self.logits.argmax(-1, keepdim=True)

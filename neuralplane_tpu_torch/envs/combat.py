@@ -135,11 +135,18 @@ class SingleCombatEnv:
         mstate = F16State(s=s, u=u, recent_s=torch.where(m, s, state.model.recent_s),
                           recent_u=torch.where(m, u, state.model.recent_u))
         zeros = torch.zeros_like(state.is_done)
-        return state.replace(
+        # replace() keeps a subclass's extra fields; _reset_extras resets them
+        new = state.replace(
             model=mstate, controller=self.controller.reset(state.controller, mask),
             blood=torch.where(mask, self.config.max_blood, state.blood),
             step_count=torch.where(mask, 0, state.step_count),
             is_done=zeros, bad_done=zeros, exceed_time_limit=zeros)
+        return self._reset_extras(new, mask)
+
+    def _reset_extras(self, state: CombatState, mask: torch.Tensor) -> CombatState:
+        """Subclass hook: reset a subclass's per-agent state on the masked
+        rows (the missile envs' ammo, cooldown and missiles)."""
+        return state
 
     def reset(self, seed: int = 0) -> Tuple[CombatState, torch.Tensor]:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -216,6 +223,12 @@ class SingleCombatEnv:
             mstate = model.raw_control_update(mstate, u)
         return mstate, cst
 
+    # --- action decode (a subclass hook) ---
+    def _decode(self, action: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(flight demands [n, 4] in [-1, 1], fire bits [n] or None); the
+        guns-only envs clamp the continuous action and have no fire bit."""
+        return torch.clamp(action, -1.0, 1.0), None
+
     # --- step ---
     @torch.no_grad()
     def step(self, state: CombatState, action: torch.Tensor
@@ -223,7 +236,7 @@ class SingleCombatEnv:
         if self.generator is None:
             raise RuntimeError("call reset(seed) before step()")
         state = self._masked_reset(state)
-        action = torch.clamp(action, -1.0, 1.0)
+        action, _ = self._decode(action)
         mstate, cst = self._inner_fdm(action, state.model, state.controller)
         xdot = self.model.extended_state(mstate)
 
@@ -265,8 +278,9 @@ class MultipleCombatEnv(SingleCombatEnv):
     - physical terminations and crash apply to alive agents; shutdown is the
       team-wipe win/lose split.
 
-    Geometry is group-local ([E, m, m] all pairs). The JAX package's weapon
-    hooks belong to the shoot envs (ROADMAP.md section 1, item 14).
+    Geometry is group-local ([E, m, m] all pairs). `_split_action` and
+    `_weapon_phase` are the hooks of the missile team game
+    (envs/combat_shoot.py); here they decode nothing and add nothing.
     """
 
     inner_steps = 1
@@ -349,6 +363,21 @@ class MultipleCombatEnv(SingleCombatEnv):
         h, own = self.half, self._own_rows[None, :]
         return x[:, :h].sum(1)[:, None] * own + x[:, h:].sum(1)[:, None] * ~own
 
+    # --- subclass hooks (weapons) ---
+    def _split_action(self, action: torch.Tensor):
+        """(flight demands [n, 4] in [-1, 1], fire bits [n] or None); the
+        guns-only team game has no fire bit."""
+        return self._decode(action)
+
+    def _weapon_phase(self, state: CombatState, mstate, xdot: torch.Tensor,
+                      alive_g: torch.Tensor, fire, perm, key_sorted, AO_t):
+        """Between the FDM step and the blood accounting: `AO_t` [E, m] is
+        each agent's angle-off toward its nearest alive enemy
+        (`perm[:, :, 0]`). Returns (state, weapon): weapon is None when the
+        game has no weapons beyond the guns, else (extra damage taken [E, m],
+        extra damage dealt [E, m], reward adjustment [E, m], info dict)."""
+        return state, None
+
     def _wiped(self, alive_g: torch.Tensor):
         """(own team wiped, enemy team wiped), each [E, m] from every
         agent's side."""
@@ -364,7 +393,7 @@ class MultipleCombatEnv(SingleCombatEnv):
         if self.generator is None:
             raise RuntimeError("call reset(seed) before step()")
         state = self._masked_reset(state)
-        action = torch.clamp(action, -1.0, 1.0)
+        action, fire = self._split_action(action)
         h = self.half
         alive_pre = state.blood > 0.0                                  # [n]
 
@@ -390,6 +419,12 @@ class MultipleCombatEnv(SingleCombatEnv):
         # damage to each victim, summed over its attackers in agent order
         victim = target == torch.arange(self.num_agents, device=self.device)
         incoming = (victim * dmg[:, :, None]).sum(dim=1)              # [E, m]
+        dealt = dmg
+        state, weapon = self._weapon_phase(state, mstate, xdot, alive_g, fire, perm,
+                                           key_sorted, AO_t)
+        if weapon is not None:
+            w_incoming, w_dealt, r_adj, w_info = weapon
+            incoming, dealt = incoming + w_incoming, dmg + w_dealt
         blood = state.blood - incoming.reshape(-1)
         alive_post = blood > 0.0
         alive_post_g = self._group(alive_post)
@@ -402,9 +437,12 @@ class MultipleCombatEnv(SingleCombatEnv):
         # team-shared reward
         posture = self._posture_reward(AO_t, TA_t, R_t) * alive_g * has_target
         wiped_own, wiped_enm = self._wiped(alive_post_g)
-        reward = ((self._team_sum(posture) + 0.1 * (self._team_sum(dmg)
-                                                    - self._team_sum(incoming))) / h
-                  + 200.0 * (wiped_enm & ~wiped_own) - 200.0 * wiped_own).reshape(-1)
+        team = (self._team_sum(posture) + 0.1 * (self._team_sum(dealt)
+                                                 - self._team_sum(incoming))) / h
+        if weapon is not None:
+            team = team + r_adj
+            info.update(w_info)
+        reward = (team + 200.0 * (wiped_enm & ~wiped_own) - 200.0 * wiped_own).reshape(-1)
 
         new_state = new_state.replace(is_done=done, bad_done=bad, exceed_time_limit=exceed)
         return new_state, StepOutput(obs=obs, reward=reward, done=done, bad_done=bad,

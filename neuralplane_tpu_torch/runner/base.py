@@ -70,8 +70,11 @@ class Runner:
         self._t0 = time.time()
 
     def _build_policy(self, env, cfg: RLConfig):
+        # a non-Box env (the missile envs' ShootTuple) exposes `action_space`
+        # and the obs slots of the Beta launch prior
         policy = PPOPolicy(cfg, env.num_observation, env.num_actions,
                            act_space=getattr(env, "action_space", None),
+                           prior_slots=getattr(env, "shoot_prior_slots", (11, 13)),
                            device=self.device)
         return policy, PPOTrainer(cfg, policy)
 

@@ -5,9 +5,13 @@ Each env group holds M agents: the first M/2 are the trainee ("ego") team,
 the last M/2 are flown by frozen opponent actors from a checkpoint pool.
 The env batch splits into K pool slices of whole env groups, one frozen
 actor each (the JAX package's vmap over K stacked parameter sets is a loop
-over the K slices; the repo's runs use K = 1). Nothing in the rollout loop
-reads a value back to the host; the RNN states are recorded once per
-recurrent chunk, as in `runner/f16sim.py`.
+over the K slices; the repo's runs use K = 1); the frozen actors are of the
+policy's own kind (`PPOPolicy.init_actor_params`), so they fly any action
+space. Nothing in the rollout loop reads a value back to the host; the RNN
+states are recorded once per recurrent chunk, as in `runner/f16sim.py`. The
+missile envs' `shoot/launches`, `shoot/hits` and `shoot/pk_sum` are summed
+over the collect on the device as `shoot_*` counters, and logged with each
+record.
 
 The pool is `checkpoints/actor_<name>.pt` (the port's own format, a
 torch.save of the actor's state_dict); a resumed run also imports a JAX
@@ -27,11 +31,10 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..algorithms.networks import Actor, params_from_jax
+from ..algorithms.networks import params_from_jax
 from ..algorithms.ppo.buffer import RolloutBatch
 from ..algorithms.rl_config import RLConfig
 from ..algorithms.selfplay import choose_opponent, elo_update, elo_update_scored
-from ..algorithms.utils.distributions import DiagGaussian
 from ..utils.checkpoint import load_checkpoint, load_jax_pickle, save_checkpoint
 from .base import Runner
 
@@ -71,6 +74,13 @@ class SelfplayCarry:
     ego_masks: torch.Tensor     # [n_ego, 1]
     opp_masks: torch.Tensor     # [n_opp, 1]
     bad_masks: torch.Tensor     # [n_ego, 1]
+    # per-agent liveness at the upcoming obs (MAPPO's active masks); None
+    # for the PPO self-play runner
+    active_masks: Optional[torch.Tensor] = None
+
+
+# the missile envs' per-step counts, folded into the collect's counters
+SHOOT_KEYS = ("shoot/launches", "shoot/hits", "shoot/pk_sum")
 
 
 def _env_any(env, x: torch.Tensor) -> torch.Tensor:
@@ -99,8 +109,8 @@ class SelfplayRunner(Runner):
             "num_envs must divide evenly into opponent slices")
         self.rng = np.random.default_rng(cfg.seed)
         # one frozen actor per pool slice, loaded from the pool
-        self.opponents: List[Actor] = [
-            Actor(self.policy.spec, torch.Generator().manual_seed(0))
+        self.opponents: List[torch.nn.Module] = [
+            self.policy.init_actor_params(torch.Generator().manual_seed(0))
             .to(self.device).requires_grad_(False) for _ in range(self.num_opponents)]
         restored = self._restored_extras.get("selfplay", {})
         self.latest_elo = float(restored.get("latest_elo", cfg.init_elo))
@@ -152,7 +162,7 @@ class SelfplayRunner(Runner):
                                                 self.policy.actor.state_dict().items()})
         self.policy_pool[name] = self.latest_elo
 
-    def _stack_opponents(self, names) -> List[Actor]:
+    def _stack_opponents(self, names) -> List[torch.nn.Module]:
         """Load the named pool entries into the K frozen actors."""
         for actor, name in zip(self.opponents, names):
             actor.load_state_dict(load_checkpoint(self._pool_path(name)))
@@ -172,8 +182,7 @@ class SelfplayRunner(Runner):
         acts, hs = [], []
         for actor, o, hh, m in zip(self.opponents, pool_slices(obs, k), pool_slices(h, k),
                                    pool_slices(masks, k)):
-            mean, log_std, hh = actor.step(o, hh, m)
-            dist = DiagGaussian(mean, log_std)
+            dist, hh = actor.dist_step(o, hh, m)
             acts.append(dist.mode() if deterministic else dist.sample(self.generator))
             hs.append(hh)
         return torch.cat(acts), torch.cat(hs)
@@ -188,10 +197,19 @@ class SelfplayRunner(Runner):
                              h_actor=h_a, h_critic=h_c, h_opp=torch.zeros_like(h_a),
                              ego_masks=ones, opp_masks=ones, bad_masks=ones)
 
+    def _ego_actions(self, carry: SelfplayCarry):
+        """The trainee's rollout forward: (values, actions, logp, h_actor,
+        h_critic, extra step data); MAPPO adds the centralized obs."""
+        return self.policy.get_actions(carry.ego_obs, carry.h_actor, carry.h_critic,
+                                       carry.ego_masks, self.generator) + ({},)
+
+    def _next_active(self, carry: SelfplayCarry, out, reset_env) -> Optional[torch.Tensor]:
+        """The next carry's active masks (None: the PPO runner keeps none)."""
+        return None
+
     def _collect_step(self, carry: SelfplayCarry):
         env = self.env
-        values, actions, logp, h_a, h_c = self.policy.get_actions(
-            carry.ego_obs, carry.h_actor, carry.h_critic, carry.ego_masks, self.generator)
+        values, actions, logp, h_a, h_c, extra = self._ego_actions(carry)
         opp_actions, h_opp = self._opponents_act(carry.opp_obs, carry.h_opp,
                                                  carry.opp_masks, deterministic=False)
         env_state, out = env.step(carry.env_state, team_merge(env, actions, opp_actions))
@@ -208,49 +226,61 @@ class SelfplayRunner(Runner):
                          rewards=team_split(env, out.reward[:, None])[0],
                          masks=carry.ego_masks, bad_masks=carry.bad_masks,
                          action_log_probs=logp, value_preds=values,
-                         done_count=out.done.sum() + out.bad_done.sum())
+                         done_count=out.done.sum() + out.bad_done.sum(), **extra)
+        # the missile envs' counts ride along as 0-d counters
+        step_data.update({k.replace("/", "_"): out.info[k] for k in SHOOT_KEYS
+                          if k in out.info})
         new_carry = SelfplayCarry(
             env_state=env_state, ego_obs=ego_obs, opp_obs=opp_obs, h_actor=h_a * keep,
             h_critic=h_c * keep, h_opp=h_opp * keep, ego_masks=next_masks,
-            opp_masks=next_masks, bad_masks=1.0 - bad_env.float())
+            opp_masks=next_masks, bad_masks=1.0 - bad_env.float(),
+            active_masks=self._next_active(carry, out, reset_env))
         return new_carry, step_data
+
+    # the step data with a row after the last step ([T + 1] buffers)
+    _LAST_ROW = ("obs", "masks", "bad_masks", "value_preds")
 
     @torch.no_grad()
     def collect(self, carry: SelfplayCarry
                 ) -> Tuple[SelfplayCarry, RolloutBatch, Dict[str, torch.Tensor]]:
         """Roll buffer_size steps; returns (carry, batch, counters), the
-        counters device tensors. Two nested loops over the T/L recurrent
-        chunks and their L steps: the batch's rnn_states_* are the
-        chunk-start states, [T/L, n_ego, layers, H]."""
+        counters (done_count, and shoot_* on the missile envs) 0-d device
+        tensors summed over the steps. Two nested loops over the T/L
+        recurrent chunks and their L steps: the batch's rnn_states_* are
+        the chunk-start states, [T/L, n_ego, layers, H]."""
         T, L = self.cfg.buffer_size, self.cfg.data_chunk_length
         if T % L != 0:
             raise ValueError(f"buffer_size {T} % data_chunk_length {L} != 0")
-        n, dev = self.n_ego, self.device
-
-        def buf(rows, *shape):
-            return torch.empty((rows, n, *shape), dtype=torch.float32, device=dev)
-        obs = buf(T + 1, carry.ego_obs.shape[1])
-        actions = buf(T, self.policy.spec.act_dim)
-        rewards, logp = buf(T, 1), buf(T, 1)
-        masks, bad_masks, values = buf(T + 1, 1), buf(T + 1, 1), buf(T + 1, 1)
-        h0_a = buf(T // L, *carry.h_actor.shape[1:])
-        h0_c = buf(T // L, *carry.h_critic.shape[1:])
-        done_total = torch.zeros((), dtype=torch.int64, device=dev)
+        dev = self.device
+        h0_a = torch.empty((T // L, *carry.h_actor.shape), device=dev)
+        h0_c = torch.empty((T // L, *carry.h_critic.shape), device=dev)
+        steps: Dict[str, torch.Tensor] = {}
+        counters: Dict[str, torch.Tensor] = {}
         for c in range(T // L):
             h0_a[c], h0_c[c] = carry.h_actor, carry.h_critic
             for t in range(c * L, (c + 1) * L):
                 carry, d = self._collect_step(carry)
-                obs[t], actions[t], rewards[t] = d["obs"], d["actions"], d["rewards"]
-                masks[t], bad_masks[t] = d["masks"], d["bad_masks"]
-                logp[t], values[t] = d["action_log_probs"], d["value_preds"]
-                done_total += d["done_count"]
-        obs[T], masks[T], bad_masks[T] = carry.ego_obs, carry.ego_masks, carry.bad_masks
-        values[T] = self.policy.get_values(carry.ego_obs, carry.h_critic, carry.ego_masks)
-        batch = RolloutBatch(obs=obs, actions=actions, rewards=rewards, masks=masks,
-                             bad_masks=bad_masks, action_log_probs=logp,
-                             value_preds=values, rnn_states_actor=h0_a,
-                             rnn_states_critic=h0_c)
-        return carry, batch, {"done_count": done_total}
+                for k, v in d.items():
+                    if v.dim() == 0:
+                        counters[k] = counters[k] + v if k in counters else v.clone()
+                        continue
+                    if k not in steps:   # one float32 buffer per row of step data
+                        rows = T + 1 if k in self._LAST_ROW else T
+                        steps[k] = torch.empty((rows, *v.shape), device=dev)
+                    steps[k][t] = v
+        for k, v in self._last_rows(carry).items():
+            steps[k][T] = v
+        return carry, self._batch(steps, h0_a, h0_c), counters
+
+    def _last_rows(self, carry: SelfplayCarry) -> Dict[str, torch.Tensor]:
+        """The rows after the last step: the carry's obs and masks, and the
+        bootstrap value V(obs)."""
+        return {"obs": carry.ego_obs, "masks": carry.ego_masks, "bad_masks": carry.bad_masks,
+                "value_preds": self.policy.get_values(carry.ego_obs, carry.h_critic,
+                                                      carry.ego_masks)}
+
+    def _batch(self, steps: Dict[str, torch.Tensor], h0_a, h0_c) -> RolloutBatch:
+        return RolloutBatch(**steps, rnn_states_actor=h0_a, rnn_states_critic=h0_c)
 
     # ---- evaluation against the pool, and ELO ----
     @torch.no_grad()
@@ -346,7 +376,7 @@ class SelfplayRunner(Runner):
         start = time.time()
         train_infos: Dict[str, float] = {}
         for episode in range(episodes):
-            carry, batch, _ = self.collect(carry)
+            carry, batch, counters = self.collect(carry)
             train_infos = self.train(batch)
             total = (episode + 1) * steps_per_episode
             if episode % cfg.log_interval == 0:
@@ -355,6 +385,9 @@ class SelfplayRunner(Runner):
                     batch.rewards.sum() / ends.clamp_min(1))
                 train_infos["fps"] = int(total / (time.time() - start))
                 train_infos["latest_elo"] = self.latest_elo
+                for k, v in counters.items():
+                    if k.startswith("shoot_"):
+                        train_infos[k] = round(float(v), 3)
                 self.log_info(train_infos, total)
             if cfg.use_eval and episode % cfg.eval_interval == 0 and episode:
                 self.log_info(self.eval_elo(), total)

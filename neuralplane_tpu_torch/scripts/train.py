@@ -18,11 +18,15 @@ hierarchical env over a frozen control policy (a JAX pickle or a port
 env. `--env-name SingleCombat --scenario-name selfplay --use-selfplay`
 trains 1v1 self-play against a pool of frozen past selves (SelfplayRunner;
 `scripts/train_selfplay.sh` has the repo's flags); `--env-name
-MultipleCombat` builds the team game, whose self-play needs MAPPO, as in the
-JAX CLI. `--model-dir` resumes from the port's checkpoints and from the JAX
-package's (a run directory, `state_*.pkl`, `results/*/policy_checkpoint.pkl`).
-What the port does not have yet raises NotImplementedError naming its
-ROADMAP.md item: the shoot envs, MAPPO and the device mesh.
+SingleCombatShoot --scenario-name selfplay_shoot --use-prior` the same with
+missiles (`scripts/train_shoot.sh`). `--env-name MultipleCombat` and
+`MultipleCombatShoot` build the team games, whose self-play needs
+`--algorithm-name mappo` (MAPPOSelfplayRunner, a centralized critic;
+`scripts/train_multiplecombat_shoot.sh`), as in the JAX CLI. `--model-dir`
+resumes from the port's checkpoints and from the JAX package's (a run
+directory, `state_*.pkl`, `results/*/policy_checkpoint.pkl`). `--use-mesh`
+(data parallelism over several cards) raises NotImplementedError naming its
+ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -32,15 +36,14 @@ import os
 import time
 
 from ..algorithms.rl_config import RLConfig
-from ..envs import ControlEnv, MultipleCombatEnv, PlanningEnv, SingleCombatEnv
+from .. import envs
 from ..envs.planning import load_low_level_ckpt
-from ..runner import F16SimRunner, SelfplayRunner
+from ..runner import F16SimRunner, MAPPOSelfplayRunner, SelfplayRunner
 
-# what the port does not have yet, by ROADMAP.md section 1 item
-_NOT_YET = {
-    "SingleCombatShoot": "the shoot combat envs are ROADMAP.md section 1, item 14",
-    "MultipleCombatShoot": "the shoot combat envs are ROADMAP.md section 1, item 14",
-}
+# the combat envs by --env-name
+COMBAT = {"SingleCombat": envs.SingleCombatEnv, "SingleCombatShoot": envs.SingleCombatShootEnv,
+          "MultipleCombat": envs.MultipleCombatEnv,
+          "MultipleCombatShoot": envs.MultipleCombatShootEnv}
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -197,19 +200,16 @@ def args_to_config(args: argparse.Namespace) -> RLConfig:
 def make_env(args: argparse.Namespace, num_envs: int = None):
     n = num_envs if num_envs is not None else args.n_rollout_threads
     if args.env_name == "Control":
-        return ControlEnv(num_envs=n, config=args.scenario_name,
+        return envs.ControlEnv(num_envs=n, config=args.scenario_name,
                           model=args.model_name, aero_backend=args.aero_backend,
                           device=args.device)
     if args.env_name == "Planning":
         low = load_low_level_ckpt(args.low_level_ckpt) if args.low_level_ckpt else None
-        return PlanningEnv(num_envs=n, config=args.scenario_name, model=args.model_name,
+        return envs.PlanningEnv(num_envs=n, config=args.scenario_name, model=args.model_name,
                            low_level_params=low, aero_backend=args.aero_backend,
                            device=args.device)
-    if args.env_name in ("SingleCombat", "MultipleCombat"):
-        cls = SingleCombatEnv if args.env_name == "SingleCombat" else MultipleCombatEnv
-        return cls(num_envs=n, config=args.scenario_name, aero_backend=args.aero_backend,
-                   device=args.device)
-    raise NotImplementedError(f"--env-name {args.env_name}: {_NOT_YET[args.env_name]}")
+    return COMBAT[args.env_name](num_envs=n, config=args.scenario_name,
+                                 aero_backend=args.aero_backend, device=args.device)
 
 
 def main(argv=None) -> None:
@@ -222,9 +222,6 @@ def main(argv=None) -> None:
             "team env has mid-episode deaths, and only the MAPPO runner's "
             "active_masks stop dead agents' frozen-corpse transitions from "
             "training at full weight")
-    if args.algorithm_name == "mappo":
-        raise NotImplementedError("--algorithm-name mappo: MAPPO is ROADMAP.md "
-                                  "section 1, item 15")
     if args.use_mesh:
         raise NotImplementedError("--use-mesh: data parallelism is ROADMAP.md "
                                   "section 1, item 18")
@@ -237,7 +234,9 @@ def main(argv=None) -> None:
         "runs", f"{time.strftime('%Y-%m-%d_%H-%M-%S')}_{args.env_name}_"
         f"{args.scenario_name}_{args.model_name}_{args.algorithm_name}_"
         f"{args.experiment_name}")
-    runner_cls = SelfplayRunner if args.use_selfplay else F16SimRunner
+    runner_cls = F16SimRunner
+    if args.use_selfplay:
+        runner_cls = MAPPOSelfplayRunner if args.algorithm_name == "mappo" else SelfplayRunner
     runner = runner_cls(env, cfg, run_dir=run_dir, eval_env=eval_env,
                         model_dir=args.model_dir, use_tensorboard=args.use_tensorboard)
     try:

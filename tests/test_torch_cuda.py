@@ -4,7 +4,9 @@ ops/step_cuda.py in both modes), at n = 4099 (no multiple of any tile) and,
 for the persistent tile loops, at ragged sizes around one tile (64 aircraft
 in the distilled kernels, 32 in the 43-net ones); and the training loop on
 the card (collects launch env_step once per step, the policy on the card
-agrees with its CPU copy). Every test here is marked
+agrees with its CPU copy), and the combat and missile steps (the xdot
+kernel against its plain version, no host sync, a MAPPO collect with no
+host sync). Every test here is marked
 `cuda` and skips without an NVIDIA GPU. The file imports no JAX, so that it
 runs where only PyTorch is installed:
 
@@ -425,15 +427,21 @@ def combat_step_pair(cls, n_envs, seed=5):
     nlplant_distilled and with its plain version (same generator state and
     actions): ((state, out) kernel, (state, out) plain, (xdot kernel
     launches, env_step launches) of the first), the first under the sync
-    debug mode."""
+    debug mode. The missile envs get ShootTuple actions, the bit on half
+    the rows."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     import functools
     env = cls(n_envs, aero_backend="distilled", device="cuda")
     rng = np.random.default_rng(seed)
+    nvec = getattr(getattr(env, "action_space", None), "nvec", None)
 
     def act():
-        return T(rng.uniform(-1, 1, (env.n, 4)).astype(np.float32)).cuda()
+        if nvec is None:
+            return T(rng.uniform(-1, 1, (env.n, 4)).astype(np.float32)).cuda()
+        a = np.concatenate([rng.integers(0, nvec, (env.n, 4)), rng.random((env.n, 1)) < 0.5],
+                           axis=1)
+        return T(a.astype(np.float32)).cuda()
     st, _ = env.reset(seed)
     for _ in range(2):
         st, _ = env.step(st, act())
@@ -477,3 +485,59 @@ def test_combat_step_kernel_matches_plain_on_card(team, n_envs):
         assert (err > 1e-3).float().mean(0).max() <= max(5e-2, 1.0 / n)
     for f in ("done", "bad_done", "exceed_time_limit"):
         assert (getattr(g, f) != getattr(w, f)).float().mean() <= max(1e-2, 1.0 / n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("team", [False, True])
+@pytest.mark.parametrize("n_envs", [1, 33, 500])
+def test_shoot_step_kernel_matches_plain_on_card(team, n_envs):
+    """chip_smoke.py phase 23's check at small sizes, on the missile envs:
+    11 (1v1) or 3 (team) nlplant_distilled launches, env_step none, no host
+    sync; obs, state, reward and missile positions against the plain
+    version as the combat test holds them; ammo, cooldown and the active
+    slots on all but 1% of rows."""
+    from neuralplane_tpu_torch.envs import MultipleCombatShootEnv, SingleCombatShootEnv
+    cls = MultipleCombatShootEnv if team else SingleCombatShootEnv
+    (gs, g), (ws, w), launches = combat_step_pair(cls, n_envs)
+    assert launches == ((3 if team else 11), 0)
+    n = gs.model.s.shape[0]
+    assert g.obs.shape == (n, 33 if team else 18) and torch.isfinite(g.obs).all()
+    for got, want in ((g.obs, w.obs), (gs.model.s, ws.model.s), (g.reward, w.reward),
+                      (gs.missiles.pos, ws.missiles.pos)):
+        scale = want.reshape(n, -1).pow(2).mean(0).sqrt().clamp_min(1e-6)
+        err = (got - want).reshape(n, -1).abs() / scale
+        assert err.median(0).values.max() < 1e-4 and err.max() < 1.0
+        assert (err > 1e-3).float().mean(0).max() <= max(5e-2, 1.0 / n)
+    for got, want in ((gs.ammo, ws.ammo), (gs.cooldown, ws.cooldown),
+                      (gs.missiles.active, ws.missiles.active), (g.done, w.done)):
+        assert (got != want).reshape(n, -1).any(1).float().mean() <= max(1e-2, 1.0 / n)
+
+
+@pytest.mark.cuda
+def test_mappo_collect_makes_no_host_sync(tmp_path):
+    """A MAPPO self-play collect on the 2v2 missile env (33 envs, the shoot
+    head with its prior, a frozen opponent) under CUDA's sync debug mode
+    'error': no step reads back to the host; 3 nlplant_distilled launches
+    per step, env_step none; finite shared batch on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from neuralplane_tpu_torch.algorithms.rl_config import RLConfig
+    from neuralplane_tpu_torch.envs import MultipleCombatShootEnv
+    from neuralplane_tpu_torch.runner import MAPPOSelfplayRunner
+    env = MultipleCombatShootEnv(33, aero_backend="distilled", device="cuda")
+    cfg = RLConfig(buffer_size=4, data_chunk_length=2, hidden_sizes=(32,),
+                   act_hidden_sizes=(32,), recurrent_hidden_size=32, use_prior=True)
+    run = MAPPOSelfplayRunner(env, cfg, run_dir=str(tmp_path))
+    carry, _, _ = run.collect(run.init_carry(3))   # warm-up
+    aero_cuda.nlplant_distilled.launches = step_cuda.env_step.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        carry, batch, counters = run.collect(carry)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    run.close()
+    assert (aero_cuda.nlplant_distilled.launches, step_cuda.env_step.launches) == (12, 0)
+    assert batch.share_obs.is_cuda and batch.share_obs.shape == (5, 66, 66)
+    assert torch.isfinite(batch.value_preds).all() and torch.isfinite(batch.obs).all()
+    assert {"done_count", "shoot_launches", "shoot_hits", "shoot_pk_sum"} <= set(counters)

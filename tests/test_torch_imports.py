@@ -9,10 +9,12 @@ import pytest
 import torch
 
 import neuralplane_tpu_torch
+from neuralplane_tpu_torch.algorithms.mappo import MAPPOPolicy
 from neuralplane_tpu_torch.algorithms.ppo import PPOPolicy
 from neuralplane_tpu_torch.algorithms.pid import Controller
-from neuralplane_tpu_torch.envs import (ControlEnv, Env, MultipleCombatEnv, PlanningEnv,
-                                        SingleCombatEnv, make_control_vec_env)
+from neuralplane_tpu_torch.envs import (ControlEnv, Env, MultipleCombatEnv,
+                                        MultipleCombatShootEnv, PlanningEnv, SingleCombatEnv,
+                                        SingleCombatShootEnv, make_control_vec_env)
 from neuralplane_tpu_torch.measure import measure_env_step
 from neuralplane_tpu_torch.ops.aero import (load_aero_weights, load_distilled,
                                             select_aero_weights)
@@ -36,14 +38,17 @@ print(" ".join(names))
 """
 
 # modules added with the other airframes, the planning env, the gym
-# adapters, the classical controllers, the combat envs and self-play: each
-# must be among those imported above
+# adapters, the classical controllers, the combat envs, self-play, the
+# action heads, the missiles and MAPPO: each must be among those imported
+# above
 NEW_MODULES = ("ops.linear_aero", "models.uav", "models.c172p", "envs.planning",
                "envs.wrappers", "runner.gym_adapter", "algorithms.pid",
                "algorithms.pid.config", "algorithms.pid.pid", "algorithms.pid.attitude",
                "algorithms.pid.speed", "algorithms.pid.tecs", "algorithms.pid.l1",
                "algorithms.pid.controller", "envs.combat", "algorithms.selfplay",
-               "runner.selfplay")
+               "runner.selfplay", "algorithms.heads", "ops.missile", "envs.combat_shoot",
+               "algorithms.mappo", "algorithms.mappo.policy", "algorithms.mappo.trainer",
+               "runner.mappo")
 
 
 def test_port_imports_no_jax():
@@ -61,7 +66,8 @@ def test_port_imports_no_jax():
                                    load_aero_weights, select_aero_weights, task_step,
                                    PPOPolicy, PlanningEnv, make_control_vec_env, GymRunner,
                                    SingleCombatEnv, MultipleCombatEnv,
-                                   Controller().init_state])
+                                   Controller().init_state, SingleCombatShootEnv,
+                                   MultipleCombatShootEnv, MAPPOPolicy])
 def test_entry_points_default_to_cuda(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
 
@@ -84,7 +90,8 @@ def test_planning_env_without_device_targets_cuda():
             PlanningEnv(num_envs=2)
 
 
-@pytest.mark.parametrize("cls", [SingleCombatEnv, MultipleCombatEnv])
+@pytest.mark.parametrize("cls", [SingleCombatEnv, MultipleCombatEnv, SingleCombatShootEnv,
+                                 MultipleCombatShootEnv])
 def test_combat_envs_without_device_target_cuda(cls):
     if torch.cuda.is_available():
         assert cls(num_envs=2).device.type == "cuda"

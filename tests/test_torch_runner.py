@@ -306,14 +306,50 @@ def test_cli_trains_planning_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--env-name", "SingleCombatShoot"], "item 14"),
-    (["--env-name", "MultipleCombatShoot"], "item 14"),
-    (["--algorithm-name", "mappo"], "item 15"),
-    (["--use-mesh"], "item 18"),
+    pytest.param(["--use-mesh"], "item 18", id="extra3-item 18"),
 ])
 def test_cli_names_what_is_not_ported(tmp_path, extra, match):
     with pytest.raises(NotImplementedError, match=match):
         train_cli.main(CLI + ["--run-dir", str(tmp_path / "run")] + extra)
+
+
+# the missile and MAPPO branches, once the not-ported cases above
+MISSILE_CLI = {
+    "SingleCombatShoot": ["--env-name", "SingleCombatShoot", "--scenario-name",
+                          "selfplay_shoot", "--n-rollout-threads", "2"],
+    "MultipleCombatShoot": ["--env-name", "MultipleCombatShoot", "--scenario-name",
+                            "multiple_selfplay_shoot", "--algorithm-name", "mappo",
+                            "--n-rollout-threads", "1"],
+    "mappo": ["--env-name", "MultipleCombat", "--scenario-name", "multiple_selfplay",
+              "--algorithm-name", "mappo", "--n-rollout-threads", "1"],
+}
+
+
+@pytest.mark.parametrize("branch", list(MISSILE_CLI))
+def test_cli_trains_the_missile_and_mappo_branches(tmp_path, branch):
+    """Self-play with the Beta launch prior through each branch, two tiny
+    episodes of 8 ego agent-steps on the CPU: finite records (with the
+    shoot_* counters on the missile envs), the checkpoint and the pool."""
+    args = MISSILE_CLI[branch] + [
+        "--use-selfplay", "--use-prior", "--selfplay-algorithm", "fsp",
+        "--n-choose-opponents", "1", "--elo-tie-band", "50", "--buffer-size", "4",
+        "--data-chunk-length", "2", "--num-env-steps", "16", "--ppo-epoch", "1",
+        "--num-mini-batch", "1", "--hidden-size", "16", "--act-hidden-size", "8",
+        "--recurrent-hidden-size", "8", "--log-interval", "1", "--aero-backend", "stacked",
+        "--device", "cpu", "--run-dir", str(tmp_path / "run")]
+    train_cli.main(args)
+    recs = read_jsonl(tmp_path / "run" / "metrics.jsonl")
+    assert [r["step"] for r in recs] == [8, 16]
+    assert all(np.isfinite(v) for r in recs for v in r.values())
+    assert ("shoot_launches" in recs[0]) == branch.endswith("Shoot")
+    ckpt = tmp_path / "run" / "checkpoints"
+    assert sorted(os.listdir(ckpt)) == ["actor_0.pt", "actor_1.pt", "actor_2.pt",
+                                        "state_latest.pt"]
+    blob = load_checkpoint(str(ckpt / "state_latest.pt"))
+    critic_in = blob["policy"]["critic.trunk.base.layers.0.dense.weight"].shape[1]
+    obs_dim = blob["policy"]["actor.trunk.base.layers.0.dense.weight"].shape[1]
+    assert critic_in == (obs_dim if branch == "SingleCombatShoot" else 2 * obs_dim)
+    assert ("actor.head.shoot.weight" in blob["policy"]) == branch.endswith("Shoot")
 
 
 SELFPLAY_CLI = ["--env-name", "SingleCombat", "--scenario-name", "selfplay", "--use-selfplay",

@@ -12,6 +12,13 @@
     python tools/heading_eval.py --env-name SingleCombat --scenario selfplay \
         --checkpoint results/selfplay/policy_checkpoint.pkl --steps 500 \
         --backend distilled --interpret --repeats 5
+    python tools/heading_eval.py --env-name SingleCombatShoot --scenario selfplay_shoot \
+        --checkpoint results/shoot_1v1/policy_checkpoint.pkl --steps 500 \
+        --backend distilled --interpret --repeats 5
+    python tools/heading_eval.py --env-name MultipleCombatShoot \
+        --scenario multiple_selfplay_shoot --n 500 \
+        --checkpoint results/mappo_2v2_shoot/policy_checkpoint.pkl --steps 500 \
+        --backend distilled --interpret --repeats 5
 
 Restores the checkpoint (default results/heading/policy_checkpoint.pkl) into
 the package's F16SimRunner with the default RLConfig networks, on
@@ -30,6 +37,12 @@ GRU memory zeroed when a group resets, masks from the group's done flags),
 and each value is the ego team's mean reward per agent-step over --steps
 (`ego_mean_reward_per_agent_step`), each repeat from its own env seed. The
 JAX SingleCombatEnv also reads its backend from NEURALPLANE_AERO_BACKEND.
+With --env-name SingleCombatShoot or MultipleCombatShoot the same loop flies
+the missile envs (ShootTuple actions, the Beta launch prior on: the
+committed missile policies were trained with --use-prior); the team game's
+checkpoint is read by the MAPPO runner, a whole MAPPO TrainState or an
+actor-only pickle, and its actor flies every agent; the line also carries each repeat's missile launches and hits per step
+(`launches_per_step`, `hits_per_step`).
 
 `--package jax` runs neuralplane_tpu on the CPU; "stacked" is its CPU
 default, "pallas" the same 43 nets with the fused kernels' bf16 rounding
@@ -51,6 +64,15 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
+# the combat envs by --env-name, the same class names in both packages
+COMBAT = {"SingleCombat": "SingleCombatEnv", "SingleCombatShoot": "SingleCombatShootEnv",
+          "MultipleCombatShoot": "MultipleCombatShootEnv"}
+# the team game trains with MAPPO: its runner reads a MAPPO checkpoint (the
+# centralized critic beside the actor) or an actor-only one, and the actor flies
+MAPPO_ENVS = ("MultipleCombatShoot",)
+# the missile envs' per-step counts, summed over a repeat
+SHOT_KEYS = ("shoot/launches", "shoot/hits")
+
 
 def jax_evals(args):
     import jax
@@ -58,15 +80,15 @@ def jax_evals(args):
     jax.config.update("jax_default_matmul_precision", "highest")
     from neuralplane_tpu.algorithms.rl_config import RLConfig
     from neuralplane_tpu.envs import ControlEnv
-    from neuralplane_tpu.runner import F16SimRunner
+    from neuralplane_tpu.runner import F16SimRunner, MAPPOSelfplayRunner
     if args.interpret:
         from jax.experimental import pallas as pl
         orig = pl.pallas_call
         pl.pallas_call = lambda *a, **k: orig(*a, **{**k, "interpret": True})
-    if args.env_name == "SingleCombat":
-        from neuralplane_tpu.envs import SingleCombatEnv
+    if args.env_name in COMBAT:
+        from neuralplane_tpu import envs as jax_envs
         os.environ["NEURALPLANE_AERO_BACKEND"] = args.backend
-        env = SingleCombatEnv(num_envs=args.n, config=args.scenario)
+        env = getattr(jax_envs, COMBAT[args.env_name])(num_envs=args.n, config=args.scenario)
     elif args.env_name == "Planning":
         import pickle
         from neuralplane_tpu.envs import PlanningEnv
@@ -78,9 +100,9 @@ def jax_evals(args):
     else:
         env = ControlEnv(num_envs=args.n, config=args.scenario, model=args.model,
                          aero_backend=args.backend)
-    if args.interpret and args.env_name != "SingleCombat":
+    if args.interpret and args.env_name not in COMBAT:
         env.config = env.config.replace(kernel_obs_noise=False, kernel_reset_draws=False)
-    return env, F16SimRunner, RLConfig
+    return env, (MAPPOSelfplayRunner if args.env_name in MAPPO_ENVS else F16SimRunner), RLConfig
 
 
 def jax_combat_values(args, env, runner):
@@ -98,31 +120,36 @@ def jax_combat_values(args, env, runner):
         done = out.done.reshape(-1, m).any(1)
         h = h * (1.0 - jnp.repeat(reset, m))[:, None, None]
         masks = (1.0 - jnp.repeat(done, m))[:, None]
-        return state, out.obs, h, masks, out.reward.reshape(-1, m)[:, :m // 2].sum()
+        shots = jnp.stack([out.info.get(k, jnp.zeros((), jnp.int32)).astype(jnp.float32)
+                           for k in SHOT_KEYS])
+        return state, out.obs, h, masks, out.reward.reshape(-1, m)[:, :m // 2].sum(), shots
 
-    values = []
+    values, shots = [], []
     for _ in range(args.repeats):
         state, obs = env.reset(runner.next_key())
         h, _ = runner.policy.init_rnn_states(env.n)
-        masks, total = jnp.ones((env.n, 1)), 0.0
+        masks, total, fired = jnp.ones((env.n, 1)), 0.0, 0.0
         for _ in range(args.steps):
-            state, obs, h, masks, ego = step(state, obs, h, masks)
+            state, obs, h, masks, ego, n_shots = step(state, obs, h, masks)
             total += ego
+            fired += n_shots
         values.append(float(total) / (env.n // 2 * args.steps))
-    return values
+        shots.append([float(x) / args.steps for x in fired])
+    return values, shots
 
 
 def port_combat_values(args, env, runner):
     """The ego team's mean reward per agent-step, the port."""
     import torch
     m = env.num_agents
-    values = []
+    values, shots = [], []
     with torch.no_grad():
         for _ in range(args.repeats):
             state, obs = env.reset(runner.next_seed())
             h, _ = runner.policy.init_rnn_states(env.n)
             masks = torch.ones((env.n, 1), device=env.device)
             total = torch.zeros((), dtype=torch.float64, device=env.device)
+            fired = torch.zeros(len(SHOT_KEYS), dtype=torch.float64, device=env.device)
             for _ in range(args.steps):
                 a, h = runner.policy.act(obs, h, masks, deterministic=True)
                 state, out = env.step(state, a)
@@ -131,19 +158,24 @@ def port_combat_values(args, env, runner):
                 h = h * (~reset).float().repeat_interleave(m)[:, None, None]
                 masks = (~done).float().repeat_interleave(m)[:, None]
                 total += out.reward.reshape(-1, m)[:, :m // 2].sum()
+                for i, k in enumerate(SHOT_KEYS):
+                    if k in out.info:
+                        fired[i] += out.info[k]
                 obs = out.obs
             values.append(float(total) / (env.n // 2 * args.steps))
-    return values
+            shots.append([float(x) / args.steps for x in fired])
+    return values, shots
 
 
 def port_evals(args):
     from neuralplane_tpu_torch.algorithms.rl_config import RLConfig
     from neuralplane_tpu_torch.envs import ControlEnv
-    from neuralplane_tpu_torch.runner import F16SimRunner
-    if args.env_name == "SingleCombat":
-        from neuralplane_tpu_torch.envs import SingleCombatEnv
-        env = SingleCombatEnv(num_envs=args.n, config=args.scenario,
-                              aero_backend=args.backend, device=args.device)
+    from neuralplane_tpu_torch.runner import F16SimRunner, MAPPOSelfplayRunner
+    if args.env_name in COMBAT:
+        from neuralplane_tpu_torch import envs as port_envs
+        env = getattr(port_envs, COMBAT[args.env_name])(
+            num_envs=args.n, config=args.scenario, aero_backend=args.backend,
+            device=args.device)
     elif args.env_name == "Planning":
         from neuralplane_tpu_torch.envs import PlanningEnv
         from neuralplane_tpu_torch.envs.planning import load_low_level_ckpt
@@ -153,7 +185,7 @@ def port_evals(args):
     else:
         env = ControlEnv(num_envs=args.n, config=args.scenario, model=args.model,
                          aero_backend=args.backend, device=args.device)
-    return env, F16SimRunner, RLConfig
+    return env, (MAPPOSelfplayRunner if args.env_name in MAPPO_ENVS else F16SimRunner), RLConfig
 
 
 def main(argv=None) -> None:
@@ -164,7 +196,7 @@ def main(argv=None) -> None:
     ap.add_argument("--scenario", default="heading")
     ap.add_argument("--model", default="F16", choices=["F16", "UAV", "C172P"])
     ap.add_argument("--env-name", default="Control",
-                    choices=["Control", "Planning", "SingleCombat"])
+                    choices=["Control", "Planning", *COMBAT])
     ap.add_argument("--low-level-ckpt",
                     default=os.path.join(REPO, "results", "control", "policy_checkpoint.pkl"),
                     help="Planning: the frozen low-level control policy")
@@ -178,26 +210,33 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     env, runner_cls, cfg_cls = (jax_evals if args.package == "jax" else port_evals)(args)
     t0 = time.perf_counter()
+    # the missile policies were trained with the Beta launch prior on
+    cfg = cfg_cls(use_prior=args.env_name.endswith("Shoot"))
+    shots = None
     with tempfile.TemporaryDirectory() as run_dir:
-        runner = runner_cls(env, cfg_cls(), run_dir=run_dir, model_dir=args.checkpoint)
+        runner = runner_cls(env, cfg, run_dir=run_dir, model_dir=args.checkpoint)
         try:
-            if args.env_name == "SingleCombat":
-                values = (jax_combat_values if args.package == "jax"
-                          else port_combat_values)(args, env, runner)
+            if args.env_name in COMBAT:
+                values, shots = (jax_combat_values if args.package == "jax"
+                                 else port_combat_values)(args, env, runner)
             else:
                 values = [runner.eval(args.steps)["eval_average_episode_rewards"]
                           for _ in range(args.repeats)]
         finally:
             runner.close()
+    extra = {}
+    if shots is not None and args.env_name.endswith("Shoot"):
+        extra = {"launches_per_step": [s[0] for s in shots],
+                 "hits_per_step": [s[1] for s in shots]}
     print(json.dumps({"package": args.package, "checkpoint": os.path.relpath(args.checkpoint, REPO),
                       "env_name": args.env_name, "model": args.model,
                       "scenario": args.scenario, "n": args.n, "steps": args.steps,
                       "backend": args.backend, "interpret": args.interpret,
                       "device": args.device if args.package == "port" else "cpu",
                       "noise_scale": env.config.noise_scale,
-                      ("ego_mean_reward_per_agent_step" if args.env_name == "SingleCombat"
+                      ("ego_mean_reward_per_agent_step" if args.env_name in COMBAT
                        else "eval_average_episode_rewards"): values,
-                      "mean": sum(values) / len(values),
+                      "mean": sum(values) / len(values), **extra,
                       "seconds": time.perf_counter() - t0}))
 
 
