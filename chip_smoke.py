@@ -76,11 +76,29 @@ Phases, each reported on its own line:
      steps: the ego mean reward per agent-step and the missile launches
      (and, for the team, hits) per step against the JAX package's.
 
+ 27. distillation on the card (surrogates/distill.py) at the README's
+     configuration (hidden 256, batch 65,536) for 2,000 of its 80,000 steps:
+     ms per step, the falling loss, evaluate and xdot_fidelity of the fit;
+     the fit through to_npz and load_distilled into nlplant_distilled
+     against its plain version; the shipped npz's gate R^2 on the card
+     against the CPU's on the same states;
+ 28. train_surrogate on one lo-fi table at the reference recipe for 100
+     epochs, and ops/lofi.py at 10^6 points on the card against the CPU;
+ 29. scripts/render.py in-process in each mode (ppo and pid 500 frames,
+     planning 200, 1v1 missile combat five episodes of 300): ACMI grammar,
+     channels, metrics, the kernel launches per frame;
+ 30. the heading and 1v1 missile actors exported (utils/export.py,
+     scripts/export.py) and run in a torch-only process against the live
+     policies;
+ 31. utils/profiling.py around ten main-path steps at 10^6, and
+     scripts/supervise.py over one leg of the train CLI at phase 15's
+     configuration.
+
 The launch counters are set to 0 just before phases 6, 7, 12, 13, 14, 15,
 16, 17, 18, each eval of 19, each timed run of 20 and 23, the runs of 21,
-24 and 25 and the evals of 22 and 26, and read just after; a kernel of the
-path that did not launch, or one that launched off its path in 17-26,
-fails the run. Any
+24 and 25, the evals of 22 and 26 and each render of 29, and read just
+after; a kernel of the path that did not launch, or one that launched off
+its path in 17-26 and 29, fails the run. Any
 mismatch, non-finite value or failed check exits non-zero. The
 second-to-last line is the kernel table as JSON, the last line the device
 record.
@@ -88,6 +106,8 @@ record.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import math
 import os
@@ -1825,6 +1845,429 @@ def phase_shoot_fly(table, phase: int = 26) -> None:
         table["nlplant_distilled"][f"launches_{name}_eval"] = counts["nlplant_distilled"]
 
 
+# Phase 27: the fit is the README's distillation configuration (hidden 256,
+# batch 65,536, lr 3e-3) with its schedule run over a cut of its 80,000 steps.
+DISTILL_STEPS = 2000
+DISTILL_GATE = 0.999         # the distillation CLI's xdot gate
+FIDELITY_CPU_ROW = 1e-5      # the shipped npz's gate R^2, card vs CPU, per row
+
+
+def phase_distill(table, steps=DISTILL_STEPS, phase=27):
+    """Distillation on the card (surrogates/distill.py) at the README's
+    configuration, the schedule over `steps` (reduced from 80,000): ms per
+    step, the first and last loss (it must fall), evaluate (quantized) and
+    xdot_fidelity of the fit; the fit through to_npz and load_distilled into
+    nlplant_distilled against its plain version on 65,536 envelope states
+    (the phase-3 tolerance block); xdot_fidelity of the shipped npz on the
+    card, which must pass the gate and agree with the port's CPU value on
+    the same states. Then a profile of one step."""
+    import tempfile
+    from neuralplane_tpu_torch.ops import aero_cuda
+    from neuralplane_tpu_torch.ops.aero import K, load_aero_weights, load_distilled
+    from neuralplane_tpu_torch.surrogates import distill
+    dev = torch.device("cuda")
+    w43 = load_aero_weights(device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d = distill.Distiller(w43, hidden=256, steps=steps, batch=65536, lr=3e-3, seed=0)
+    first = d.step()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(steps - 1):
+        last = d.step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / (steps - 1)
+    first, last = float(first), float(last)
+    params, mean, std = d.result()
+    ev = distill.evaluate(w43, params, mean, std)
+    fid = distill.xdot_fidelity(w43, params, mean, std)
+    log(f"phase {phase} distillation hidden 256, batch 65536, lr 3e-3, {steps} steps "
+        f"(reduced from the README's 80000; the cosine schedule runs over the cut): "
+        f"{step_ms:.4f} ms/step, output statistics and first step {setup_s:.3f} s; "
+        f"loss {first:.4e} -> {last:.4e}; quantized min coefficient R^2 {ev['r2_min']:.6f} "
+        f"({ev['worst']}); xdot R^2 per row {np.round(fid['xdot_r2'], 6).tolist()}, min "
+        f"{fid['xdot_r2_min']:.6f}")
+    if not (math.isfinite(last) and last < first):
+        raise Mismatch(f"phase {phase}: the distillation loss did not fall ({first} -> {last})")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fresh.npz")
+        distill.to_npz(path, params, mean, std, {**ev, **fid})
+        w = load_distilled(path, device=dev)
+    g = torch.Generator(device=dev).manual_seed(27)
+    s, u = random_states(65536, g, dev)
+    errs = [compare_cols(f"phase {phase} nlplant_distilled fresh weights hidden_bf16={hb}",
+                         aero_cuda.nlplant_distilled(w, s, u, hidden_bf16=hb),
+                         aero_cuda.nlplant_distilled_plain(w, s, u, hidden_bf16=hb))
+            for hb in (True, False)]
+    log(f"phase {phase} the fit through to_npz, load_distilled and nlplant_distilled on "
+        f"65536 states: kernel vs plain max_abs_err {max(errs):.3e} (phase-3 limits) OK")
+
+    with np.load(os.path.join(REPO, "neuralplane_tpu", "data", "f16_aero_distilled.npz")) as z:
+        shipped = distill.DistilledParams(z["W1"], z["b1"], z["W2"], z["b2"], z["W3"][:K],
+                                          z["b3"][:K])
+        s_mean, s_std = z["out_mean"][:K], z["out_std"][:K]
+    s, u = distill.fidelity_states(8192, torch.Generator(device=dev).manual_seed(7))
+    card = distill.xdot_fidelity(w43, shipped, s_mean, s_std, s=s, u=u)
+    cpu = distill.xdot_fidelity(load_aero_weights(device="cpu"), shipped, s_mean, s_std,
+                                s=s.cpu(), u=u.cpu())
+    diff = float(np.abs(card["xdot_r2"] - cpu["xdot_r2"]).max())
+    log(f"phase {phase} the shipped npz's xdot R^2 on the card: min {card['xdot_r2_min']:.6f} "
+        f"(gate {DISTILL_GATE}), per row {np.round(card['xdot_r2'], 6).tolist()}; the "
+        f"port's CPU value on the same states differs by at most {diff:.2e} per row "
+        f"(limit {FIDELITY_CPU_ROW})")
+    if card["xdot_r2_min"] < DISTILL_GATE or diff > FIDELITY_CPU_ROW:
+        raise Mismatch(f"phase {phase}: the shipped npz's gate R^2 on the card is "
+                       f"{card['xdot_r2_min']} ({diff:.2e} from the CPU)")
+    busy, wall, launches, top = profile_calls(d.step, 5)
+    if busy:
+        log(f"phase {phase} profile one distillation step: device busy {busy:.1f} us of "
+            f"{wall:.1f} us wall, idle share {1 - busy / wall:.3f}, {launches:g} device "
+            f"launches; {top}")
+    else:
+        log(f"phase {phase} profile: the profiler saw no device time (not measured)")
+
+
+# Phase 28: the bound on the test R^2 of one lo-fi table trained at the
+# reference recipe for 100 epochs, set from CPU runs at the same
+# settings (seeds 0-7: 0.99500-0.99800; PERF.md section 4).
+TABLE_R2_BOUND = 0.99
+LOFI_REL = 1e-6
+
+
+def phase_tables(phase=28):
+    """surrogates/train.py on the card: train_surrogate on the lo-fi CX table
+    over (alpha, elevator) as an in-memory AeroTable, batch 32, subdivide 3,
+    100 epochs; then ops/lofi.py at 10^6 random points on the card against
+    the CPU (relative to max(|value|, the column's RMS))."""
+    from neuralplane_tpu_torch.ops import lofi
+    from neuralplane_tpu_torch.surrogates import AeroTable, train_surrogate
+    table = AeroTable("Cx", (lofi.ALPHA_AXIS, lofi.DELE_AXIS), lofi._CX.T.copy(),
+                      ("alpha", "el"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = train_surrogate(table, seed=0, epochs=100, batch_size=32, subdivide=3, device="cuda")
+    wall = time.perf_counter() - t0
+    n_points = len(table.dense_grid(3)[0])
+    log(f"phase {phase} train_surrogate(lo-fi CX over alpha x elevator, {n_points} grid "
+        f"points, batch 32, subdivide 3, 100 epochs) on the card in {wall:.3f} s: test R^2 "
+        f"{r['test_r2']:.6f} (bound {TABLE_R2_BOUND})")
+    if not r["test_r2"] >= TABLE_R2_BOUND:
+        raise Mismatch(f"phase {phase}: the table surrogate's test R^2 is {r['test_r2']}")
+    n = 10 ** 6
+    g = torch.Generator(device="cuda").manual_seed(28)
+    a = -15.0 + 65.0 * torch.rand(n, generator=g, device="cuda")
+    b = -35.0 + 70.0 * torch.rand(n, generator=g, device="cuda")
+    e = -30.0 + 60.0 * torch.rand(n, generator=g, device="cuda")
+
+    def all_lofi(a, b, e):
+        return torch.stack([*lofi.damping(a), *lofi.dmomdcon(a, b), *lofi.clcn(a, b),
+                            *lofi.cxcm(a, e), lofi.cz(a, b, e)], dim=1)
+    card = all_lofi(a, b, e)
+    cpu = all_lofi(a.cpu(), b.cpu(), e.cpu())
+    scale = torch.maximum(cpu.abs(), cpu.pow(2).mean(0).sqrt())
+    rel = float(((card.cpu() - cpu).abs() / scale).max())
+    ms = cuda_ms(lambda: all_lofi(a, b, e), 5)
+    log(f"phase {phase} ops/lofi.py at {n} points: the 18 coefficients on the card against "
+        f"the CPU, max relative difference {rel:.2e} (limit {LOFI_REL}); {ms:.4f} ms for all "
+        f"five functions on the card")
+    if not torch.isfinite(card).all() or rel > LOFI_REL:
+        raise Mismatch(f"phase {phase}: lo-fi tables on the card differ from the CPU by {rel}")
+
+
+# frames per render mode: 500 of the CLI's default 2000 for the control
+# modes, 200 for planning (each frame is 50 inner steps of ~230 ms of host
+# dispatch; the depth cut that keeps the script near half its time limit).
+# Missile combat renders COMBAT_SEEDS episodes of 300 frames each: a sampled
+# self-play duel launches in the opening geometry or rarely at all (on the
+# CPU, 3 of seeds 0-3 launched within 300 frames; the card's seed 0 did not
+# in 2000), and a missile flies 200 frames, so each episode shows its
+# launches and their removals.
+RENDER_FRAMES = {"ppo": 500, "pid": 500, "planning": 200, "combat": 300}
+COMBAT_SEEDS = 5
+# one ACMI object line: id,T=lon|lat|alt|roll|pitch|yaw,Name=..,Color=..[,Type=..]
+ACMI_OBJECT = re.compile(r"^\d+,T=(-?[0-9.e+-]+\|){5}-?[0-9.e+-]+,Name=\w+,Color=\w+"
+                         r"(,Type=Missile)?$")
+ACMI_HEADER = ["FileType=text/acmi/tacview", "FileVersion=2.0",
+               "0,ReferenceTime=2023-04-01T00:00:00Z"]
+CONTROL_METRICS = {"mean_G", "mean_TAS", "mean_RoC", "mean_AOA", "ASM", "SSM", "OSM",
+                   "AOASM", "AOSSM", "episode_reward", "reached_target", "failed",
+                   "success_rate"}
+
+
+def acmi_grammar(path: str) -> dict:
+    """Line kinds of an ACMI file, after checking the header and that every
+    line is a frame stamp, an object line or a removal, with finite numbers."""
+    with open(path, encoding="utf-8") as f:
+        lines = f.read().splitlines()
+    if lines[:3] != ACMI_HEADER:
+        raise Mismatch(f"{path}: header {lines[:3]}")
+    kinds = {"frames": 0, "objects": 0, "missiles": 0, "removals": 0}
+    for line in lines[3:]:
+        if re.fullmatch(r"#\d+\.\d\d", line):
+            kinds["frames"] += 1
+        elif re.fullmatch(r"-\d+", line):
+            kinds["removals"] += 1
+        elif ACMI_OBJECT.match(line):
+            nums = [float(x) for x in line.split(",")[1][2:].split("|")]
+            if not all(math.isfinite(x) for x in nums):
+                raise Mismatch(f"{path}: non-finite values in {line}")
+            kinds["missiles" if line.endswith("Type=Missile") else "objects"] += 1
+        else:
+            raise Mismatch(f"{path}: a line outside the ACMI grammar: {line!r}")
+    return kinds
+
+
+def phase_render(table, frames=RENDER_FRAMES, phase=29):
+    """scripts/render.py in-process, from a temporary directory, for
+    `frames[mode]` frames in each mode on "distilled": ppo (results/heading),
+    pid, planning (results/tracking over results/control) and 1v1 missile
+    combat (results/shoot_1v1, sampled, with its Beta launch prior). Per mode: the
+    ACMI frames and grammar (the committed JAX renders' files pass the same
+    check), finite numbers, the result/*.npy channels, the metrics' keys,
+    the kernel launches per frame and ms per frame."""
+    import tempfile
+    from neuralplane_tpu_torch.render import TrajectoryRecorder
+    from neuralplane_tpu_torch.scripts import render
+    res = os.path.join(REPO, "results")
+    for committed in ("heading", "shoot_1v1"):
+        kinds = acmi_grammar(os.path.join(res, committed, "demo", "recording.txt.acmi"))
+        log(f"phase {phase} the JAX render's results/{committed}/demo/recording.txt.acmi: "
+            f"{kinds}")
+    # kernel launches per frame: the env step, plus one xdot for the frame's
+    # G channel (which the PID mode also reads for its next action); one more
+    # xdot at the PID's and the combat env's reset
+    ckpt = {k: os.path.join(res, k, "policy_checkpoint.pkl")
+            for k in ("heading", "tracking", "control", "shoot_1v1")}
+    runs = [("ppo", ["--checkpoint", ckpt["heading"]], {"env_step": 1, "nlplant_distilled": 1}, 0),
+            ("pid", [], {"env_step": 1, "nlplant_distilled": 1}, 1),
+            ("planning", ["--checkpoint", ckpt["tracking"], "--low-level-ckpt", ckpt["control"]],
+             {"nlplant_distilled": 101}, 0)]
+    runs += [("combat", ["--scenario", "selfplay_shoot", "--checkpoint", ckpt["shoot_1v1"],
+                         "--stochastic", "--seed", str(seed)], {"nlplant_distilled": 11}, 1)
+             for seed in range(COMBAT_SEEDS)]
+    combat = {"episodes": 0, "frames": 0, "launches": 0, "missiles": 0, "removals": 0, "s": 0.0}
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, (mode, argv, per_frame, at_reset) in enumerate(runs):
+            out = os.path.join(tmp, str(k))
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as printed:
+                rec = render.main(["--mode", mode, *argv, "--steps", str(frames[mode]),
+                                   "--out", out, "--aero-backend", "distilled"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            kinds = acmi_grammar(os.path.join(out, "recording.txt.acmi"))
+            done = rec["steps"] if mode == "combat" else frames[mode]
+            figure = ("" if mode == "combat" else "figure skipped (no matplotlib); "
+                      if "figure skipped" in printed.getvalue() else "figure written; ")
+            seed = f" --seed {argv[-1]}" if mode == "combat" else ""
+            log(f"phase {phase} render --mode {mode}{seed}: {done} frames in {wall:.3f} s "
+                f"({wall * 1e3 / done:.4f} ms/frame); ACMI {kinds}; launches {counts}; "
+                f"{figure}{json.dumps(rec)}")
+            check_counts(f"render --mode {mode}", counts,
+                         {k: v * done + (at_reset if k == "nlplant_distilled" else 0)
+                          for k, v in per_frame.items()})
+            for name, v in counts.items():
+                if v:
+                    key = f"launches_render_{mode}"
+                    table[name][key] = table[name].get(key, 0) + v
+            values = [v for v in rec.values() if isinstance(v, float)]
+            if kinds["frames"] != done or not all(math.isfinite(v) for v in values):
+                raise Mismatch(f"render {mode}: {kinds['frames']} frames for {done}, or a "
+                               "non-finite metric")
+            if mode == "combat":
+                # a launched missile is drawn from its launch frame on; a
+                # removal follows only a missile that flew
+                if set(rec) != {"steps", "blood", "launches", "hits", "ammo"} \
+                        or (rec["launches"] > 0) != (kinds["missiles"] > 0) \
+                        or kinds["removals"] > rec["launches"]:
+                    raise Mismatch(f"render combat: keys {sorted(rec)}, launches "
+                                   f"{rec['launches']}, ACMI {kinds}")
+                for key, v in (("episodes", 1), ("frames", done), ("launches", rec["launches"]),
+                               ("missiles", kinds["missiles"]),
+                               ("removals", kinds["removals"]), ("s", wall)):
+                    combat[key] += v
+                continue
+            names = {f[:-4] for f in os.listdir(os.path.join(out, "result"))}
+            bufs = [np.load(os.path.join(out, "result", f"{k}.npy")) for k in names]
+            if set(rec) != CONTROL_METRICS \
+                    or not set(TrajectoryRecorder.CHANNELS) < names \
+                    or not all(b.shape == (done,) and np.isfinite(b).all() for b in bufs):
+                raise Mismatch(f"render {mode}: metrics {sorted(rec)}, channels {sorted(names)}")
+    log(f"phase {phase} render --mode combat over {combat['episodes']} episodes: "
+        f"{combat['frames']} frames in {combat['s']:.3f} s "
+        f"({combat['s'] * 1e3 / combat['frames']:.4f} ms/frame), {combat['launches']} missile "
+        f"launches, {combat['missiles']} missile lines, {combat['removals']} removals")
+    if not combat["missiles"] or not combat["removals"]:
+        raise Mismatch(f"render combat: no missile flew to its end in {combat['episodes']} "
+                       "episodes")
+
+
+EXPORT_FRESH = r"""
+import sys, torch
+with torch.no_grad():
+    for art, cases, out in zip(*(sys.argv[i::3] for i in (1, 2, 3))):
+        m = torch.export.load(art).module()
+        cases = torch.load(cases)
+        outs = [m(obs, h, mask) for obs, h, mask in cases]
+        obs1, h0, mask = cases[-1]
+        outs.append(m(obs1.flip(0), m(obs1, h0, mask)[1], mask))   # two chained calls
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(50):
+            m(obs1, h0, mask)
+        end.record()
+        torch.cuda.synchronize()
+        torch.save(outs, out)
+        print(start.elapsed_time(end) / 50)
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("neuralplane_tpu", "neuralplane_tpu_torch", "jax"))
+assert not bad, bad
+"""
+EXPORT_ABS = 1e-6
+
+
+def phase_export(phase=30):
+    """utils/export.py and scripts/export.py on the card: the results/heading
+    actor through the CLI and the results/shoot_1v1 actor (ShootTuple with its
+    Beta prior) through export_actor; both artifacts loaded in one fresh
+    python process that imports only torch, called at n = 1, 5, 64 and 1000
+    and twice chained, against the live policy's deterministic act within
+    EXPORT_ABS; each artifact's bytes and its ms per call at n = 1000."""
+    import tempfile
+    from neuralplane_tpu_torch.algorithms.ppo import PPOPolicy
+    from neuralplane_tpu_torch.algorithms.rl_config import RLConfig
+    from neuralplane_tpu_torch.envs import SingleCombatShootEnv
+    from neuralplane_tpu_torch.envs.planning import load_low_level_ckpt
+    from neuralplane_tpu_torch.scripts import export as export_cli
+    from neuralplane_tpu_torch.utils.export import export_actor
+    res = os.path.join(REPO, "results")
+    dev = torch.device("cuda")
+    shoot_env = SingleCombatShootEnv(1, "selfplay_shoot", aero_backend="distilled", device=dev)
+    policies = {"heading": PPOPolicy(RLConfig(), 22, 4, device=dev),
+                "shoot_1v1": PPOPolicy(RLConfig(use_prior=True), shoot_env.num_observation,
+                                       act_space=shoot_env.action_space,
+                                       prior_slots=shoot_env.shoot_prior_slots, device=dev)}
+    g = torch.Generator(device=dev).manual_seed(30)
+    with tempfile.TemporaryDirectory() as tmp:
+        argv, want, export_s = [], {}, {}
+        for name, policy in policies.items():
+            ckpt = os.path.join(res, name, "policy_checkpoint.pkl")
+            policy.actor.load_state_dict(load_low_level_ckpt(ckpt))
+            art = os.path.join(tmp, f"{name}.pt2")
+            t0 = time.perf_counter()
+            if name == "heading":
+                with no_stdout():
+                    export_cli.main(["--checkpoint", ckpt, "--obs-dim", "22", "--out", art])
+            else:
+                with open(art, "wb") as f:
+                    f.write(export_actor(policy))
+            export_s[name] = time.perf_counter() - t0
+            cases = []
+            for n in (1, 5, 64, 1000):
+                obs = torch.randn((n, policy.spec.obs_dim), generator=g, device=dev).abs()
+                h = torch.randn(policy.init_rnn_states(n)[0].shape, generator=g, device=dev)
+                cases.append((obs, h * 0.1, torch.ones((n, 1), device=dev)))
+            with torch.no_grad():
+                want[name] = [policy.act(*c) for c in cases]
+                obs1, h0, mask = cases[-1]
+                want[name].append(policy.act(obs1.flip(0), policy.act(obs1, h0, mask)[1], mask))
+            torch.save(cases, os.path.join(tmp, f"{name}.in"))
+            argv += [art, os.path.join(tmp, f"{name}.in"), os.path.join(tmp, f"{name}.out")]
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-c", EXPORT_FRESH, *argv], cwd=tmp,
+                           capture_output=True, text=True, timeout=300)
+        fresh_s = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise Mismatch(f"phase {phase}: the torch-only process failed: {r.stderr[-2000:]}")
+        for name, art, out, ms in zip(policies, argv[0::3], argv[2::3], r.stdout.split()):
+            got = torch.load(out)
+            err = max(float((a - b).abs().max()) for x, y in zip(got, want[name])
+                      for a, b in zip(x, y))
+            log(f"phase {phase} export results/{name}: {os.path.getsize(art)} bytes, exported "
+                f"in {export_s[name]:.3f} s; in a torch-only process "
+                f"{float(ms):.4f} ms per call at n=1000; n = 1, 5, 64, 1000 and two chained "
+                f"calls against the live policy: max |err| {err:.2e} (limit {EXPORT_ABS})")
+            if not err <= EXPORT_ABS:
+                raise Mismatch(f"phase {phase}: the exported {name} actor is {err} away")
+    log(f"phase {phase} the torch-only process (start, CUDA, both artifacts) took "
+        f"{fresh_s:.3f} s")
+
+
+def no_stdout():
+    """Keep a CLI's own printing out of this script's output."""
+    return contextlib.redirect_stdout(io.StringIO())
+
+
+SUPERVISED_TRAIN_ARGS = ["--env-name", "Control", "--scenario-name", "heading",
+                         "--n-rollout-threads", "3000", "--buffer-size", "1000",
+                         "--num-mini-batch", "5", "--ppo-epoch", "16", "--lr", "3e-4",
+                         "--gamma", "0.99", "--entropy-coef", "1e-3", "--max-grad-norm", "2",
+                         "--data-chunk-length", "8", "--log-interval", "1",
+                         "--aero-backend", "distilled", "--num-env-steps", str(3000 * 1000)]
+
+
+def phase_profile_supervise(phase=31):
+    """utils/profiling.py around ten main-path steps at 10^6 aircraft (the
+    trace must name the env_step kernel) and time_fn over ten more; then
+    scripts/supervise.py over one leg of the train CLI at phase 15's
+    configuration for one episode: exit 0, the merged metrics.jsonl with its
+    step, and the leg's checkpoints/state_latest.pt."""
+    import tempfile
+    from neuralplane_tpu_torch.envs import ControlEnv
+    from neuralplane_tpu_torch.scripts import supervise
+    from neuralplane_tpu_torch.utils import profiling
+    env = ControlEnv(num_envs=10 ** 6, config="heading", aero_backend="distilled",
+                     device="cuda")
+    st = [env.reset(0)[0]]
+    a = torch.zeros((env.n, 4), device="cuda")
+
+    def step():
+        st[0] = env.step(st[0], a)[0]
+    step()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp) as prof:
+            for _ in range(10):
+                step()
+        size = os.path.getsize(os.path.join(tmp, "trace.json"))
+        with open(os.path.join(tmp, "trace.json"), encoding="utf-8") as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    kernels = sorted(n for n in names if "env_step_kernel" in n)
+    timed = profiling.time_fn(step, iters=10)
+    busy = sum(r[0] for r in device_rows(prof)) / 10
+    log(f"phase {phase} profiling.trace over 10 heading steps at 10^6: trace.json {size} "
+        f"bytes, env_step kernel events {kernels}, device time {busy:.1f} us/step; "
+        f"time_fn {json.dumps(timed)}")
+    if not kernels or set(timed) != {"mean_s", "total_s", "iters"}:
+        raise Mismatch(f"phase {phase}: the trace names no env_step kernel, or time_fn's keys")
+    del env, st
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = os.path.join(tmp, "sup")
+        t0 = time.perf_counter()
+        cwd = os.getcwd()
+        os.chdir(REPO)   # the child runs `python -m neuralplane_tpu_torch.scripts.train`
+        try:
+            with no_stdout():
+                rc = supervise.main(["--run-dir", run_dir, "--stall-timeout", "600",
+                                     "--poll-interval", "1", "--", *SUPERVISED_TRAIN_ARGS])
+        finally:
+            os.chdir(cwd)
+        wall = time.perf_counter() - t0
+        with open(os.path.join(run_dir, "metrics.jsonl"), encoding="utf-8") as f:
+            rows = [json.loads(line) for line in f]
+        ckpt = os.path.exists(os.path.join(run_dir, "leg_0", "checkpoints", "state_latest.pt"))
+    log(f"phase {phase} supervise: one leg of the heading train CLI (3000 envs, buffer 1000, "
+        f"one episode) in {wall:.3f} s (the child's start included): exit {rc}, merged "
+        f"metrics {json.dumps(rows)}, checkpoints/state_latest.pt {ckpt}")
+    budget = int(SUPERVISED_TRAIN_ARGS[SUPERVISED_TRAIN_ARGS.index("--num-env-steps") + 1])
+    if rc != 0 or len(rows) != 1 or rows[0]["step"] != budget or not ckpt:
+        raise Mismatch(f"phase {phase}: the supervised leg exited {rc} with {rows}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=10 ** 6, help="aircraft per batch")
@@ -1895,6 +2338,15 @@ def main(argv=None) -> int:
     phase_shoot_train(table, team=True, phase=25)
     phase_shoot_fly(table)
     log(f"phases 23-26: {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    phase_distill(table)
+    phase_tables()
+    log(f"phases 27-28: {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    phase_render(table)
+    phase_export()
+    phase_profile_supervise()
+    log(f"phases 29-31: {time.perf_counter() - t0:.1f} s wall")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -541,3 +541,55 @@ def test_mappo_collect_makes_no_host_sync(tmp_path):
     assert batch.share_obs.is_cuda and batch.share_obs.shape == (5, 66, 66)
     assert torch.isfinite(batch.value_preds).all() and torch.isfinite(batch.obs).all()
     assert {"done_count", "shoot_launches", "shoot_hits", "shoot_pk_sum"} <= set(counters)
+
+
+@pytest.mark.cuda
+def test_xdot_kernel_on_freshly_distilled_weights(tmp_path, monkeypatch):
+    """A few distillation steps at the kernels' width (H = 256) on the card,
+    written by to_npz and read back by load_distilled: nlplant_distilled on
+    those weights against its plain version, and the gate's R^2 finite."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from neuralplane_tpu_torch.surrogates import distill
+    monkeypatch.setattr(distill, "STATS_SAMPLES", 1 << 14)
+    w43 = taero.load_aero_weights(device="cuda")
+    params, mean, std = distill.fit(w43, hidden=256, steps=20, batch=4096, log_every=0)
+    path = str(tmp_path / "fresh.npz")
+    distill.to_npz(path, params, mean, std, {})
+    w = taero.load_distilled(path, device="cuda")
+    s, u = (T(x).cuda() for x in envelope(11, 4099))
+    for hidden_bf16 in (True, False):
+        assert_kernel_close(aero_cuda.nlplant_distilled(w, s, u, hidden_bf16),
+                            aero_cuda.nlplant_distilled_plain(w, s, u, hidden_bf16))
+    fid = distill.xdot_fidelity(w43, params, mean, std, n=4096)
+    assert np.isfinite(fid["xdot_r2"]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shoot", [False, True])
+def test_export_on_the_card(shoot):
+    """The exported actor on the card against the live policy's
+    deterministic act, at several batch sizes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from neuralplane_tpu_torch.algorithms.ppo import PPOPolicy
+    from neuralplane_tpu_torch.algorithms.rl_config import RLConfig
+    from neuralplane_tpu_torch.algorithms.utils.spaces import ShootTuple
+    from neuralplane_tpu_torch.utils.export import export_actor, load_actor
+    if shoot:
+        pol = PPOPolicy(RLConfig(use_prior=True), 18, act_space=ShootTuple((30, 41, 41, 41)),
+                        device="cuda")
+    else:
+        pol = PPOPolicy(RLConfig(), 22, 4, device="cuda")
+    infer = load_actor(export_actor(pol))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for n in (1, 5, 64, 1000):
+        obs = torch.randn((n, pol.spec.obs_dim), generator=g, device="cuda").abs()
+        h, _ = pol.init_rnn_states(n)
+        h = torch.randn(h.shape, generator=g, device="cuda") * 0.1
+        mask = torch.ones((n, 1), device="cuda")
+        with torch.no_grad():
+            a_ref, h_ref = pol.act(obs, h, mask)
+        a, h2 = infer(obs, h, mask)
+        assert a.is_cuda and torch.allclose(a, a_ref, rtol=1e-6, atol=1e-6)
+        assert torch.allclose(h2, h_ref, rtol=1e-6, atol=1e-6)

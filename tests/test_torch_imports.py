@@ -20,7 +20,12 @@ from neuralplane_tpu_torch.ops.aero import (load_aero_weights, load_distilled,
                                             select_aero_weights)
 from neuralplane_tpu_torch.ops.task_cuda import task_step
 from neuralplane_tpu_torch.runner import GymRunner
+from neuralplane_tpu_torch.scripts import distill_aero as distill_cli
+from neuralplane_tpu_torch.scripts import export as export_cli
+from neuralplane_tpu_torch.scripts import render as render_cli
 from neuralplane_tpu_torch.scripts import train as train_cli
+from neuralplane_tpu_torch.scripts import train_surrogates as surrogates_cli
+from neuralplane_tpu_torch.surrogates import train_surrogate
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -48,7 +53,11 @@ NEW_MODULES = ("ops.linear_aero", "models.uav", "models.c172p", "envs.planning",
                "algorithms.pid.controller", "envs.combat", "algorithms.selfplay",
                "runner.selfplay", "algorithms.heads", "ops.missile", "envs.combat_shoot",
                "algorithms.mappo", "algorithms.mappo.policy", "algorithms.mappo.trainer",
-               "runner.mappo")
+               "runner.mappo", "ops.interp", "ops.lofi", "surrogates.tables",
+               "surrogates.train", "surrogates.distill", "utils.geodesy", "render",
+               "render.acmi", "render.trajectory", "utils.export", "utils.profiling",
+               "scripts.distill_aero", "scripts.train_surrogates", "scripts.render",
+               "scripts.export", "scripts.supervise")
 
 
 def test_port_imports_no_jax():
@@ -67,7 +76,7 @@ def test_port_imports_no_jax():
                                    PPOPolicy, PlanningEnv, make_control_vec_env, GymRunner,
                                    SingleCombatEnv, MultipleCombatEnv,
                                    Controller().init_state, SingleCombatShootEnv,
-                                   MultipleCombatShootEnv, MAPPOPolicy])
+                                   MultipleCombatShootEnv, MAPPOPolicy, train_surrogate])
 def test_entry_points_default_to_cuda(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
 
@@ -125,6 +134,35 @@ def test_training_entry_points_target_cuda():
     else:
         with pytest.raises((RuntimeError, AssertionError)):
             train_cli.make_env(args)
+
+
+@pytest.mark.parametrize("cli,argv", [
+    (distill_cli, []), (surrogates_cli, ["--data-dir", "d"]), (render_cli, []),
+    (export_cli, ["--checkpoint", "c", "--out", "o", "--obs-dim", "22"])])
+def test_tooling_clis_default_to_cuda(cli, argv):
+    assert cli.get_parser().parse_args(argv).device == "cuda"
+
+
+def test_tooling_entry_points_target_cuda(tmp_path):
+    """Without --device the render, distillation and export CLIs and
+    train_surrogate fail without a card: no silent CPU fallback (on a card
+    they run in chip_smoke.py phases 27-30)."""
+    from neuralplane_tpu_torch.ops import lofi
+    from neuralplane_tpu_torch.surrogates import AeroTable
+    table = AeroTable("Cx", (lofi.ALPHA_AXIS, lofi.DELE_AXIS), lofi._CX.T.copy(),
+                      ("alpha", "el"))
+    runs = [lambda: render_cli.main(["--mode", "pid", "--steps", "1",
+                                     "--out", str(tmp_path / "r")]),
+            lambda: train_surrogate(table, epochs=1),
+            lambda: distill_cli.main(["--steps", "1", "--out", str(tmp_path / "d.npz")]),
+            lambda: export_cli.main(["--checkpoint", os.path.join(
+                REPO, "results", "heading", "policy_checkpoint.pkl"), "--obs-dim", "22",
+                "--out", str(tmp_path / "a.pt2")])]
+    if torch.cuda.is_available():
+        return
+    for run in runs:
+        with pytest.raises((RuntimeError, AssertionError)):
+            run()
 
 
 LOADER_CHECK = r"""
