@@ -92,13 +92,26 @@ Phases, each reported on its own line:
      policies;
  31. utils/profiling.py around ten main-path steps at 10^6, and
      scripts/supervise.py over one leg of the train CLI at phase 15's
-     configuration.
+     configuration;
+
+ 32. data parallelism at world size 1 over NCCL in this process: phase 15's
+     configuration cut to buffer 104, one episode, with a mesh and without
+     one from the same seed, bit for bit;
+ 33. two ranks sharing the card over gloo, spawned from here: (a) phase 15's
+     configuration at 3000 envs in all (1500 per rank), buffer 1000, one
+     episode through make_env and F16SimRunner.run, the ranks' parameters
+     equal and a fixed batch's all-reduced gradient against one process's;
+     (b) one episode of train_selfplay.sh's configuration at 1000 envs in
+     all and one ELO eval cut to 100 steps, the ranks' ELO and pool equal;
+     (c) the train CLI under torch.distributed.run with --use-mesh at a small
+     Control configuration.
 
 The launch counters are set to 0 just before phases 6, 7, 12, 13, 14, 15,
 16, 17, 18, each eval of 19, each timed run of 20 and 23, the runs of 21,
-24 and 25, the evals of 22 and 26 and each render of 29, and read just
-after; a kernel of the path that did not launch, or one that launched off
-its path in 17-26 and 29, fails the run. Any
+24 and 25, the evals of 22 and 26, each render of 29, each run of 32 and
+each rank's runs in 33, and read just after; a kernel of the path that did
+not launch, or one that launched off its path in 17-26, 29, 32 and 33,
+fails the run. Any
 mismatch, non-finite value or failed check exits non-zero. The
 second-to-last line is the kernel table as JSON, the last line the device
 record.
@@ -1585,6 +1598,17 @@ def phase_combat(table, cases=COMBAT_CASES, steps: int = 200, phase: int = 20) -
         log(f"phase {phase} one {name} step under sync debug mode 'error': no host sync OK")
 
 
+SELFPLAY_TRAIN_ARGS = [
+    "--env-name", "SingleCombat", "--scenario-name", "selfplay", "--use-selfplay",
+    "--selfplay-algorithm", "fsp", "--n-choose-opponents", "1", "--elo-tie-band", "1.0",
+    "--use-eval", "--eval-interval", "10", "--n-rollout-threads", "1000",
+    "--num-env-steps", str(1000 * 1000), "--buffer-size", "1000", "--num-mini-batch", "5",
+    "--ppo-epoch", "16", "--lr", "3e-4", "--gamma", "0.99", "--entropy-coef", "1e-3",
+    "--max-grad-norm", "2", "--min-log-std", "-2.3", "--data-chunk-length", "8",
+    "--log-interval", "1", "--save-interval", "1", "--aero-backend", "distilled",
+    "--device", "cuda"]
+
+
 def phase_selfplay_train(table, phase: int = 21) -> None:
     """1v1 self-play training on the card at the repo's run configuration
     (scripts/train_selfplay.sh: 1000 envs, buffer 1000, chunks of 8, 5
@@ -1596,15 +1620,8 @@ def phase_selfplay_train(table, phase: int = 21) -> None:
     after: the collect launches nlplant_distilled 11 times per step, the
     reset that starts the run once more, env_step never."""
     n, T = 1000, 1000
-    argv = ["--env-name", "SingleCombat", "--scenario-name", "selfplay", "--use-selfplay",
-            "--selfplay-algorithm", "fsp", "--n-choose-opponents", "1", "--elo-tie-band",
-            "1.0", "--use-eval", "--eval-interval", "10", "--n-rollout-threads", str(n),
-            "--num-env-steps", str(T * n), "--buffer-size", str(T),
-            "--num-mini-batch", "5", "--ppo-epoch", "16", "--lr", "3e-4", "--gamma", "0.99",
-            "--entropy-coef", "1e-3", "--max-grad-norm", "2", "--min-log-std", "-2.3",
-            "--data-chunk-length", "8", "--log-interval", "1", "--save-interval", "1",
-            "--aero-backend", "distilled", "--device", "cuda"]
-    runner, env, counts, peak_mib, held_mib, records, saved, elo, eval_s = selfplay_run(argv)
+    runner, env, counts, peak_mib, held_mib, records, saved, elo, eval_s = selfplay_run(
+        SELFPLAY_TRAIN_ARGS)
     c_s, t_s = runner.times["collect"][0], runner.times["train"][0]
     collect_counts = runner.collect_launches[0]
     log(f"phase {phase} self-play training SingleCombatEnv(selfplay, distilled) {n} envs "
@@ -2267,6 +2284,344 @@ def phase_profile_supervise(phase=31):
     if rc != 0 or len(rows) != 1 or rows[0]["step"] != budget or not ckpt:
         raise Mismatch(f"phase {phase}: the supervised leg exited {rc} with {rows}")
 
+# ---- phases 32-33: data parallelism over torch.distributed ----
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_world_one(table, phase=32):
+    """Phase 15's configuration cut to buffer 104 (the multiple of its
+    chunk length 8 nearest above 100) and one episode, trained
+    twice from the same seed: without a mesh, then with a world-1 mesh over
+    an NCCL group made in this process (the backend rule's choice for one
+    rank with a card of its own). Parameters, Adam state and the logged
+    metrics must agree bit for bit, and each run launch env_step once per
+    collected step (counters set to 0 just before each run)."""
+    import tempfile
+    import torch.distributed as dist
+    from neuralplane_tpu_torch.algorithms.rl_config import RLConfig
+    from neuralplane_tpu_torch.envs import ControlEnv
+    from neuralplane_tpu_torch.parallel import card_id, choose_backend, make_mesh
+    from neuralplane_tpu_torch.runner import F16SimRunner
+    n, T = 3000, 104
+    cfg = RLConfig(n_rollout_threads=n, buffer_size=T, data_chunk_length=8,
+                   num_mini_batch=5, ppo_epoch=16, lr=3e-4, gamma=0.99,
+                   entropy_coef=1e-3, max_grad_norm=2.0, num_env_steps=T * n,
+                   log_interval=1, save_interval=1)
+    backend = choose_backend([card_id("cuda:0")])
+    if backend != "nccl":
+        raise Mismatch(f"phase {phase}: the backend rule chose {backend} for one rank")
+    runs = {}
+    for name in ("plain", "mesh"):
+        mesh = None
+        if name == "mesh":
+            dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                                    world_size=1, rank=0)
+            mesh = make_mesh("cuda", owns_group=True)
+            backend = dist.get_backend()
+        env = ControlEnv(num_envs=n, config="heading", aero_backend="distilled",
+                         device="cuda")
+        with tempfile.TemporaryDirectory() as run_dir:
+            runner = F16SimRunner(env, cfg, run_dir=run_dir, mesh=mesh)
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runner.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            runner.close()
+            with open(os.path.join(run_dir, "metrics.jsonl"), encoding="utf-8") as f:
+                records = [{k: v for k, v in json.loads(line).items()
+                            if k not in ("wall_s", "fps")} for line in f]
+        opt = runner.trainer.optimizer.state_dict()["state"]
+        runs[name] = dict(params=runner.policy.state_dict(), records=records, counts=counts,
+                          wall=wall, adam=[opt[i]["exp_avg_sq"] for i in sorted(opt)],
+                          stats=dict(mesh.stats) if mesh else None)
+        del runner, env
+        torch.cuda.empty_cache()
+    plain, meshed = runs["plain"], runs["mesh"]
+    differ = [k for k, v in plain["params"].items() if not torch.equal(v, meshed["params"][k])]
+    adam_same = all(torch.equal(a, b) for a, b in zip(plain["adam"], meshed["adam"]))
+    log(f"phase {phase} world size 1 over {backend} in-process, ControlEnv(heading, distilled) "
+        f"n={n}, buffer {T}, one episode: without a mesh {plain['wall']:.3f} s, with one "
+        f"{meshed['wall']:.3f} s ({meshed['stats']['all_reduce_calls']} all-reduces, "
+        f"{meshed['stats']['all_reduce_s']:.4f} s); parameters differing {len(differ)}"
+        f"/{len(plain['params'])}, Adam state equal {adam_same}, metrics equal "
+        f"{plain['records'] == meshed['records']}; launches {plain['counts']} / "
+        f"{meshed['counts']}; metrics {json.dumps(meshed['records'])}")
+    for name, run in runs.items():
+        check_counts(f"phase {phase} {name} run", run["counts"], {"env_step": T})
+    if differ or not adam_same or plain["records"] != meshed["records"] \
+            or len(plain["records"]) != 1 or torch.distributed.is_initialized():
+        raise Mismatch(f"phase {phase}: the world-1 mesh run is not the run without a mesh "
+                       f"(parameters {differ[:3]}, Adam {adam_same})")
+    table["env_step"]["launches_world_one"] = meshed["counts"]["env_step"]
+
+
+WORLD = 2                        # two ranks share the one card (gloo)
+GRAD_T, GRAD_N = 16, 512         # the fixed batch of phase 33(a): steps, agents in all
+# All-reduced gradient against one process's on the same batch, per leaf
+# relative to the leaf's largest |g| (tests/test_torch_distributed.py).
+GRAD_REL = 1e-4
+IDLE_ALL_REDUCES = 20            # timed gradient all-reduces with the card idle
+
+
+def fixed_batch(dev, obs_dim: int, act_dim: int, hidden: int):
+    """A rollout batch of GRAD_N agents and GRAD_T steps from a generator
+    seeded 0 on the card: the same on every rank."""
+    from neuralplane_tpu_torch.algorithms.ppo.buffer import RolloutBatch
+    g = torch.Generator(device=dev).manual_seed(0)
+    T, N = GRAD_T, GRAD_N
+
+    def rand(*shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, generator=g, device=dev) * scale + shift
+
+    def coin(*shape, p):
+        return (torch.rand(shape, generator=g, device=dev) > p).float()
+    return RolloutBatch(obs=rand(T + 1, N, obs_dim), actions=rand(T, N, act_dim, scale=0.3),
+                        rewards=rand(T, N, 1), masks=coin(T + 1, N, 1, p=0.05),
+                        bad_masks=coin(T + 1, N, 1, p=0.02),
+                        action_log_probs=rand(T, N, 1, scale=0.1, shift=-4.0),
+                        value_preds=rand(T + 1, N, 1), rnn_states_actor=rand(T // 8, N, 1, hidden),
+                        rnn_states_critic=rand(T // 8, N, 1, hidden))
+
+
+def full_batch_grads(trainer, batch):
+    """The loss gradient of every chunk of `batch` as one minibatch,
+    all-reduced over the trainer's mesh."""
+    chunks = trainer.chunks(batch)
+    idx = torch.arange(chunks[0].shape[0], device=chunks[0].device)
+    trainer._backward(trainer.gather_minibatch(chunks, idx))
+    return {k: p.grad.detach().clone() for k, p in trainer.policy.named_parameters()}
+
+
+def same_on_all_ranks(tensors, mesh) -> bool:
+    """Whether this rank's tensors equal rank 0's, bit for bit (one
+    broadcast of rank 0's flattened copy)."""
+    from neuralplane_tpu_torch.parallel import broadcast
+    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    ref = flat.clone()
+    broadcast([ref], mesh)
+    return bool(torch.equal(ref, flat))
+
+
+def rank_control(mesh, run_dir):
+    """33(a) on this rank: phase 15's configuration at 3000 envs in all
+    through the CLI's make_env and F16SimRunner.run for one episode, then
+    the fixed batch's all-reduced gradient (rank 0 also computes it in one
+    process on the whole batch)."""
+    import copy
+    import dataclasses
+    from neuralplane_tpu_torch.algorithms.ppo import PPOTrainer
+    from neuralplane_tpu_torch.parallel import all_reduce_sum, barrier, shard_batch
+    from neuralplane_tpu_torch.runner import F16SimRunner
+    from neuralplane_tpu_torch.scripts import train as train_cli
+    args = train_cli.get_parser().parse_args(SUPERVISED_TRAIN_ARGS + ["--use-mesh"])
+    args.device = str(mesh.device)
+    env = train_cli.make_env(args, mesh=mesh)
+    runner = timed_runner(F16SimRunner)(env, train_cli.args_to_config(args), run_dir=run_dir,
+                                         mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(mesh.stats)
+    zero_counts()
+    runner.run()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    stats = {k: mesh.stats[k] - before[k] for k in before}
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    runner.close()
+    same = same_on_all_ranks([*runner.policy.parameters()], mesh)
+
+    spec = runner.policy.spec
+    hidden = runner.cfg.recurrent_hidden_size
+    batch = fixed_batch(mesh.device, env.num_observation, spec.act_dim, hidden)
+    local = type(batch)(**{k: shard_batch(v, mesh, axis=1)
+                           for k, v in dataclasses.asdict(batch).items()})
+    grads = full_batch_grads(runner.trainer, local)
+    grad_err = None
+    if mesh.rank == 0:
+        single = full_batch_grads(PPOTrainer(runner.cfg, copy.deepcopy(runner.policy)), batch)
+        grad_err = max(float((grads[k] - w).abs().max() / w.abs().max().clamp_min(1e-30))
+                       for k, w in single.items())
+    # the gradient's all-reduce alone, both ranks' streams idle: what one
+    # call costs without waiting for device work
+    flat = torch.zeros(sum(g.numel() for g in grads.values()), device=mesh.device)
+    barrier(mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(IDLE_ALL_REDUCES):
+        all_reduce_sum([flat], mesh)
+    torch.cuda.synchronize()
+    idle_ms = (time.perf_counter() - t0) * 1e3 / IDLE_ALL_REDUCES
+    return dict(counts=counts, collect_s=runner.times["collect"][0],
+                train_s=runner.times["train"][0], peak_mib=peak_mib, stats=stats,
+                same_params=same, grad_err=grad_err, n_local=env.n, idle_ms=idle_ms,
+                grad_floats=flat.numel())
+
+
+def rank_selfplay(mesh, run_dir):
+    """33(b) on this rank: phase 21's configuration (train_selfplay.sh) at
+    1000 envs in all through make_env and SelfplayRunner.run for one
+    episode, then one eval_elo at ELO_EVAL_STEPS."""
+    from neuralplane_tpu_torch.runner import SelfplayRunner
+    from neuralplane_tpu_torch.scripts import train as train_cli
+    args = train_cli.get_parser().parse_args(SELFPLAY_TRAIN_ARGS + ["--use-mesh"])
+    args.device = str(mesh.device)
+    env = train_cli.make_env(args, mesh=mesh)
+    runner = timed_runner(SelfplayRunner)(env, train_cli.args_to_config(args),
+                                          run_dir=run_dir, mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(mesh.stats)
+    zero_counts()
+    runner.run()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    stats = {k: mesh.stats[k] - before[k] for k in before}
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    t0 = time.perf_counter()
+    elo = runner.eval_elo(ELO_EVAL_STEPS)
+    eval_s = time.perf_counter() - t0
+    runner.close()
+    return dict(counts=counts, collect_counts=runner.collect_launches[0],
+                collect_s=runner.times["collect"][0], train_s=runner.times["train"][0],
+                peak_mib=peak_mib, stats=stats, elo=elo, latest_elo=runner.latest_elo,
+                pool=dict(runner.policy_pool), eval_s=eval_s, n_ego=runner.n_ego,
+                same_params=same_on_all_ranks([*runner.policy.parameters()], mesh))
+
+
+def rank_worker(rank: int, port: int, out_dir: str) -> None:
+    """One of phase 33's two ranks on the one card, as torchrun would start
+    it (LOCAL_RANK, LOCAL_WORLD_SIZE): both publish the card's UUID, so
+    the backend rule picks gloo."""
+    import torch.distributed as dist
+    from neuralplane_tpu_torch.parallel import init_distributed, make_global_mesh
+    os.environ.update(LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(WORLD))
+    torch.set_num_threads(1)   # torchrun's default for several ranks on one host
+    init_distributed(f"localhost:{port}", WORLD, rank, device="cuda")
+    mesh = make_global_mesh("cuda")
+    try:
+        result = {"backend": dist.get_backend(), "device": str(mesh.device),
+                  "control": rank_control(mesh, os.path.join(out_dir, "control")),
+                  "selfplay": rank_selfplay(mesh, os.path.join(out_dir, "selfplay"))}
+        torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_two_ranks(table, phase=33):
+    """Two ranks on the one H100 over gloo, spawned from here: (a) phase
+    15's configuration at 3000 envs in all (1500 per rank), buffer 1000,
+    one episode (env_step 1000 times per rank, parameters equal on both
+    ranks after the update, the fixed batch's all-reduced gradient within
+    GRAD_REL of one process's on the whole batch); (b) one episode of
+    train_selfplay.sh's configuration at 1000 envs in all and one eval_elo
+    at ELO_EVAL_STEPS (nlplant_distilled 11 times per collected step per
+    rank, equal latest_elo and pool ratings on both ranks); (c) the train
+    CLI under torch.distributed.run with two ranks at a small Control
+    configuration (exit 0, one metrics.jsonl, written by rank 0, with the
+    global step count)."""
+    import tempfile
+    import torch.multiprocessing as mp
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        mp.start_processes(rank_worker, args=(free_port(), out_dir), nprocs=WORLD,
+                           join=True, start_method="spawn")
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+                 for r in range(WORLD)]
+    T, n_all = 1000, 3000
+    ctl = [r["control"] for r in ranks]
+    for r, c in enumerate(ctl):
+        log(f"phase {phase}a rank {r} on {ranks[r]['device']} over {ranks[r]['backend']}: "
+            f"{c['n_local']} envs, collect {c['collect_s'] * 1e3 / T:.4f} ms/step "
+            f"({c['collect_s']:.3f} s), update {c['train_s']:.3f} s, peak device memory "
+            f"{c['peak_mib']:.1f} MiB, all-reduces {c['stats']['all_reduce_calls']} in "
+            f"{c['stats']['all_reduce_s']:.4f} s (host time in the calls, waits for "
+            f"device work included), launches {c['counts']}; one all-reduce of the "
+            f"{c['grad_floats']} gradient floats with the card idle "
+            f"{c['idle_ms']:.3f} ms ({IDLE_ALL_REDUCES} calls)")
+    slowest = max(c["collect_s"] + c["train_s"] for c in ctl)
+    log(f"phase {phase}a two ranks, ControlEnv(heading, distilled) {n_all} envs in all, "
+        f"buffer {T}, one episode: {T * n_all / slowest:.4e} training agent-steps/s in all "
+        f"(slowest rank {slowest:.3f} s); parameters equal on both ranks "
+        f"{[c['same_params'] for c in ctl]}; fixed batch ({GRAD_T} steps x {GRAD_N} agents) "
+        f"all-reduced gradient vs one process: max |err| / leaf max {ctl[0]['grad_err']:.3e} "
+        f"(limit {GRAD_REL}); spawn to join {spawn_s:.1f} s")
+    for r, c in enumerate(ctl):
+        check_counts(f"phase {phase}a rank {r}", c["counts"], {"env_step": T})
+    if not all(c["same_params"] for c in ctl) or not ctl[0]["grad_err"] <= GRAD_REL \
+            or any(r["backend"] != "gloo" for r in ranks):
+        raise Mismatch(f"phase {phase}a: parameters differ between the ranks, the gradient "
+                       f"is off, or the backend is not gloo")
+    sp = [r["selfplay"] for r in ranks]
+    for r, c in enumerate(sp):
+        log(f"phase {phase}b rank {r}: {c['n_ego']} ego agents, collect "
+            f"{c['collect_s'] * 1e3 / T:.4f} ms/step ({c['collect_s']:.3f} s), update "
+            f"{c['train_s']:.3f} s, peak device memory {c['peak_mib']:.1f} MiB, all-reduces "
+            f"{c['stats']['all_reduce_calls']} in {c['stats']['all_reduce_s']:.4f} s, "
+            f"launches in the run {c['counts']}, in the collect {c['collect_counts']}; "
+            f"eval_elo {ELO_EVAL_STEPS} steps in {c['eval_s']:.3f} s: {json.dumps(c['elo'])}, "
+            f"pool {json.dumps(c['pool'])}")
+    slowest = max(c["collect_s"] + c["train_s"] for c in sp)
+    log(f"phase {phase}b two ranks, 1v1 self-play 1000 envs in all: "
+        f"{T * sum(c['n_ego'] for c in sp) / slowest:.4e} training agent-steps/s in all "
+        f"(slowest rank {slowest:.3f} s); latest_elo and pool equal on both ranks "
+        f"{sp[0]['latest_elo'] == sp[1]['latest_elo'] and sp[0]['pool'] == sp[1]['pool']}, "
+        f"parameters equal {[c['same_params'] for c in sp]}")
+    for r, c in enumerate(sp):
+        check_counts(f"phase {phase}b rank {r} collect", c["collect_counts"],
+                     {"nlplant_distilled": 11 * T})
+    if sp[0]["latest_elo"] != sp[1]["latest_elo"] or sp[0]["pool"] != sp[1]["pool"] \
+            or not all(c["same_params"] for c in sp) or not math.isfinite(sp[0]["latest_elo"]):
+        raise Mismatch(f"phase {phase}b: the ranks' ELO, pool or parameters differ")
+    table["env_step"]["launches_two_ranks_per_rank"] = ctl[0]["counts"]["env_step"]
+    table["nlplant_distilled"]["launches_two_ranks_selfplay_per_rank"] = \
+        sp[0]["collect_counts"]["nlplant_distilled"]
+    phase_torchrun(phase)
+
+
+TORCHRUN_ARGS = ["--env-name", "Control", "--scenario-name", "heading",
+                 "--n-rollout-threads", "200", "--buffer-size", "100",
+                 "--data-chunk-length", "10", "--num-env-steps", str(2 * 200 * 100),
+                 "--ppo-epoch", "2", "--num-mini-batch", "2", "--log-interval", "1",
+                 "--aero-backend", "distilled"]
+
+
+def phase_torchrun(phase=33):
+    """(c): `python -m torch.distributed.run --standalone --nproc-per-node 2
+    -m neuralplane_tpu_torch.scripts.train --use-mesh` at a small Control
+    configuration (200 envs in all, buffer 100, two episodes) on the card."""
+    import subprocess
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = os.path.join(tmp, "run")
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", str(WORLD), "-m", "neuralplane_tpu_torch.scripts.train",
+               *TORCHRUN_ARGS, "--use-mesh", "--run-dir", run_dir]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        out = proc.stdout + proc.stderr
+        records = []
+        if os.path.exists(os.path.join(run_dir, "metrics.jsonl")):
+            with open(os.path.join(run_dir, "metrics.jsonl"), encoding="utf-8") as f:
+                records = [json.loads(line) for line in f]
+    backends = sorted(set(re.findall(r"backend (\w+)", out)))
+    log(f"phase {phase}c torch.distributed.run, 2 ranks, the train CLI --use-mesh (Control, "
+        f"200 envs in all, buffer 100, two episodes): exit {proc.returncode} in {wall:.1f} s, "
+        f"backends {backends}, metrics steps {[r.get('step') for r in records]}")
+    if proc.returncode != 0 or [r["step"] for r in records] != [20000, 40000] \
+            or backends != ["gloo"]:
+        raise Mismatch(f"phase {phase}c: the CLI under torch.distributed.run failed: "
+                       f"{out[-3000:]}")
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2347,6 +2702,10 @@ def main(argv=None) -> int:
     phase_export()
     phase_profile_supervise()
     log(f"phases 29-31: {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    phase_world_one(table)
+    phase_two_ranks(table)
+    log(f"phases 32-33: {time.perf_counter() - t0:.1f} s wall")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -4,7 +4,8 @@ neuralplane_tpu/algorithms/mappo/trainer.py).
 
 The rollout batch adds share_obs and active_masks; the clipped surrogate
 and the value loss are PPO's, and only the entropy term is averaged over
-the active (alive) agents.
+the active (alive) agents; over a mesh, over the active agents of every
+rank.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from typing import Tuple
 
 import torch
 
+from ...parallel.mesh import all_reduce_sum
 from ..ppo.buffer import RolloutBatch
 from ..ppo.trainer import PPOTrainer
 
@@ -42,5 +44,13 @@ class MAPPOTrainer(PPOTrainer):
         return self.policy.evaluate_actions(share_obs, obs, h0_actor, h0_critic, actions, masks)
 
     def _entropy_loss(self, entropy: torch.Tensor, sample: Tuple) -> torch.Tensor:
+        """-sum(entropy * active) / sum(active) over the global minibatch.
+        Ranks hold different numbers of live agents, so over a mesh the
+        denominator is all-reduced and the local numerator scaled by the
+        world size: the mean of the ranks' gradients is then the global
+        ratio's."""
         active = sample[8]
-        return -(entropy * active).sum() / active.sum().clamp_min(1.0)
+        den = active.sum()
+        all_reduce_sum([den], self.mesh)
+        world = self.mesh.size if self.mesh is not None else 1
+        return -(entropy * active).sum() * world / den.clamp_min(1.0)

@@ -13,9 +13,11 @@ Index convention (as the JAX package's):
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+
+from ...parallel.mesh import Mesh, all_reduce_sum
 
 
 @dataclasses.dataclass
@@ -60,12 +62,19 @@ def compute_returns(batch: RolloutBatch, gamma: float, gae_lambda: float,
     return returns
 
 
-def compute_advantages(returns: torch.Tensor, value_preds: torch.Tensor
-                       ) -> torch.Tensor:
+def compute_advantages(returns: torch.Tensor, value_preds: torch.Tensor,
+                       mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Whole-buffer-normalized advantages (buffer.py:73-77); the standard
-    deviation is the population one, as jnp.std's."""
+    deviation is the population one, as jnp.std's. Both come from sums,
+    which over a mesh are all-reduced: the whole buffer is then every
+    rank's share."""
     adv = returns - value_preds[:-1]
-    return (adv - adv.mean()) / (adv.std(correction=0) + 1e-5)
+    total = torch.stack([adv.sum(), adv.new_tensor(float(adv.numel()))])
+    all_reduce_sum([total], mesh)
+    mean = total[0] / total[1]
+    sq = ((adv - mean) ** 2).sum()
+    all_reduce_sum([sq], mesh)
+    return (adv - mean) / ((sq / total[1]).sqrt() + 1e-5)
 
 
 def make_chunks(batch: RolloutBatch, returns: torch.Tensor,

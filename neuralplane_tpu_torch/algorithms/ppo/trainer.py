@@ -13,13 +13,23 @@ Metrics stay on the device until `train` returns.
 
 The JAX TrainState (params, Adam state, update count) is here the policy's
 modules, `optimizer` and `step`; `train_state_from_jax` carries one across.
+
+With a mesh (parallel/mesh.py) each rank holds its share of the rollout
+batch and draws its epoch permutations over its own chunks from its own
+generator: the global minibatch is the union of the ranks' minibatches,
+all of one size. The losses are means over it, so the mean of the ranks'
+gradients is the global gradient: one all-reduce of every gradient per
+minibatch, after `backward` and before the norms that clip it. The
+advantages are normalized by the global mean and deviation, and `train`'s
+metrics are averaged over the ranks.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
+from ...parallel.mesh import Mesh, all_reduce_mean
 from ..networks import params_from_jax
 from ..rl_config import RLConfig
 from .buffer import RolloutBatch, compute_advantages, compute_returns, make_chunks
@@ -32,9 +42,10 @@ def _global_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
 
 
 class PPOTrainer:
-    def __init__(self, cfg: RLConfig, policy: PPOPolicy):
+    def __init__(self, cfg: RLConfig, policy: PPOPolicy, mesh: Optional[Mesh] = None):
         self.cfg = cfg
         self.policy = policy
+        self.mesh = mesh
         self.init_state()
 
     def init_state(self) -> None:
@@ -82,11 +93,18 @@ class PPOTrainer:
                    "policy_entropy_loss": entropy_loss, "ratio": ratio.mean()}
         return loss, {k: v.detach() for k, v in metrics.items()}
 
-    def _update_minibatch(self, sample: Tuple) -> Dict[str, torch.Tensor]:
-        cfg = self.cfg
+    def _backward(self, sample: Tuple) -> Dict[str, torch.Tensor]:
+        """The loss's gradients in the parameters' `.grad`, averaged over the
+        mesh in one all-reduce; returns the loss's metrics."""
         self.optimizer.zero_grad(set_to_none=True)
         loss, metrics = self._loss(sample)
         loss.backward()
+        all_reduce_mean([p.grad for p in self.policy.parameters()], self.mesh)
+        return metrics
+
+    def _update_minibatch(self, sample: Tuple) -> Dict[str, torch.Tensor]:
+        cfg = self.cfg
+        metrics = self._backward(sample)
         norms = {}
         with torch.no_grad():
             for name, net in (("actor", self.policy.actor), ("critic", self.policy.critic)):
@@ -107,25 +125,33 @@ class PPOTrainer:
         return torch.randperm(n, generator=generator, device=generator.device)
 
     # ---- full update ----
-    def train(self, batch: RolloutBatch, generator: torch.Generator
-              ) -> Dict[str, torch.Tensor]:
-        """One PPO update from a rollout batch; returns the metrics averaged
-        over minibatches, then over epochs, as 0-d tensors on the device."""
+    def chunks(self, batch: RolloutBatch) -> Tuple:
+        """The batch's recurrent chunks with returns and advantages, the
+        advantages normalized over the whole (global) batch."""
         cfg = self.cfg
         with torch.no_grad():
             returns = compute_returns(batch, cfg.gamma, cfg.gae_lambda,
                                       cfg.use_gae, cfg.use_proper_time_limits)
-            advantages = compute_advantages(returns, batch.value_preds)
-            chunks = self._chunk_arrays(batch, returns, advantages)
+            advantages = compute_advantages(returns, batch.value_preds, self.mesh)
+            return self._chunk_arrays(batch, returns, advantages)
+
+    @staticmethod
+    def gather_minibatch(chunks: Tuple, idx: torch.Tensor) -> Tuple:
+        """Chunk rows [mb, L, ...] -> time-major [L, mb, ...]; the two
+        initial rnn states (last entries) stay [mb, layers, H]."""
+        out = [arr.index_select(0, idx) for arr in chunks]
+        return tuple(a.transpose(0, 1) for a in out[:-2]) + tuple(out[-2:])
+
+    def train(self, batch: RolloutBatch, generator: torch.Generator
+              ) -> Dict[str, torch.Tensor]:
+        """One PPO update from a rollout batch; returns the metrics averaged
+        over minibatches, then over epochs (then over the mesh's ranks), as
+        0-d tensors on the device."""
+        cfg = self.cfg
+        chunks = self.chunks(batch)
         num_chunks = chunks[0].shape[0]
         mb_size = num_chunks // cfg.num_mini_batch
         used = mb_size * cfg.num_mini_batch
-
-        def gather_mb(idx):
-            """Chunk rows [mb, L, ...] -> time-major [L, mb, ...]; the two
-            initial rnn states (last entries) stay [mb, layers, H]."""
-            out = [arr.index_select(0, idx) for arr in chunks]
-            return tuple(a.transpose(0, 1) for a in out[:-2]) + tuple(out[-2:])
 
         epochs = []
         for _ in range(cfg.ppo_epoch):
@@ -133,9 +159,13 @@ class PPOTrainer:
             # sorted within each minibatch: the loss is a mean, so the order
             # of rows is irrelevant; the random partition is unchanged
             mb_idx = perm.reshape(cfg.num_mini_batch, mb_size).sort(dim=1).values
-            mbs = [self._update_minibatch(gather_mb(idx)) for idx in mb_idx]
+            mbs = [self._update_minibatch(self.gather_minibatch(chunks, idx))
+                   for idx in mb_idx]
             epochs.append({k: torch.stack([m[k] for m in mbs]).mean() for k in mbs[0]})
-        return {k: torch.stack([e[k] for e in epochs]).mean() for k in epochs[0]}
+        names = list(epochs[0])
+        values = torch.stack([torch.stack([e[k] for e in epochs]).mean() for k in names])
+        all_reduce_mean([values], self.mesh)
+        return dict(zip(names, values.unbind()))
 
 
 def train_state_from_jax(ts, trainer: PPOTrainer) -> None:

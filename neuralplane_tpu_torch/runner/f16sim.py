@@ -13,6 +13,13 @@ Mask construction (F16sim_runner.insert:138-154, f16sim.py:80-114):
   bad_dones_env  = any-over-agents bad_done  -> bad_masks[t+1] = 0
   reset_env      = any-over-agents any flag  -> rnn states zeroed
 (`exceed_time_limit` is all zero on the fused path, as in the JAX package.)
+
+Over a mesh (JAX :53-68) the env is this rank's share, `n` rows of the
+global `n * world` (scripts/train.py:make_env splits the global count and
+checks that it divides, as the JAX assert at :59-60 does): episode counts
+and `total_num_steps` are global, and the logged reward sums, episode ends
+and `termination/*` counts are summed over the ranks in one all-reduce
+before `log_info`, as are the eval's.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ import torch
 
 from ..algorithms.ppo.buffer import RolloutBatch
 from ..algorithms.rl_config import RLConfig
+from ..parallel.mesh import Mesh, all_reduce_sum
 from .base import Runner
 
 
@@ -39,14 +47,15 @@ class RolloutCarry:
 
 
 class F16SimRunner(Runner):
-    """PPO on the single-agent control envs (heading / control / tracking).
-    The env's device is the runner's; the port has no mesh yet (ROADMAP.md
-    section 1, item 18)."""
+    """PPO on the single-agent control envs (heading / control / tracking)
+    and the planning env. The env's device is the runner's; `mesh` makes
+    the runner one rank of a data-parallel run."""
 
     def __init__(self, env, cfg: RLConfig, run_dir: str = "runs/debug",
                  eval_env=None, model_dir: Optional[str] = None,
-                 use_tensorboard: bool = False):
-        super().__init__(env, cfg, run_dir, eval_env, model_dir, use_tensorboard)
+                 use_tensorboard: bool = False, mesh: Optional[Mesh] = None):
+        super().__init__(env, cfg, run_dir, eval_env, model_dir, use_tensorboard,
+                         mesh=mesh)
         self.num_envs = env.num_envs
         self.num_agents = env.num_agents
         self.n = env.n
@@ -139,7 +148,7 @@ class F16SimRunner(Runner):
     def run(self) -> Dict[str, float]:
         cfg = self.cfg
         carry = self.init_carry(self.next_seed())
-        total_steps_per_episode = cfg.buffer_size * self.n
+        total_steps_per_episode = cfg.buffer_size * self.n * self.world
         episodes = max(1, int(cfg.num_env_steps) // total_steps_per_episode)
         start = time.time()
         train_infos: Dict[str, float] = {}
@@ -151,14 +160,15 @@ class F16SimRunner(Runner):
 
             if episode % cfg.log_interval == 0:
                 # avg episode reward = sum(rewards) / #episode-ends
-                # (F16sim_runner.py:98-99)
+                # (F16sim_runner.py:98-99), both summed over the ranks
                 ends = ((batch.masks[1:] == 0).sum()
                         + (batch.bad_masks[1:] == 0).sum())
-                avg_rew = batch.rewards.sum() / ends.clamp_min(1)
+                sums = torch.stack([batch.rewards.sum(), ends.float()]
+                                   + [v.float() for v in counters.values()])
+                all_reduce_sum([sums], self.mesh)
+                avg_rew = sums[0] / sums[1].clamp_min(1)
                 names = ["average_episode_rewards", *counters]
-                values = torch.stack([avg_rew.float()] + [v.float() for v in
-                                                          counters.values()]).tolist()
-                train_infos.update(zip(names, values))
+                train_infos.update(zip(names, torch.cat([avg_rew[None], sums[2:]]).tolist()))
                 fps = int(total_num_steps / (time.time() - start))
                 logging.info(
                     "episode %d/%d steps %d FPS %d avg_episode_reward %.3f",
@@ -194,5 +204,6 @@ class F16SimRunner(Runner):
             total_rew += out.reward.sum()
             total_done += reset.sum()
             obs = out.obs
+        all_reduce_sum([total_rew, total_done], self.mesh)
         return {"eval_average_episode_rewards":
                 float(total_rew / total_done.clamp_min(1))}

@@ -6,8 +6,9 @@ agent, are the critic's input (share_obs); the active masks follow each
 agent's liveness (the team env's `StepOutput.active`: a shot-down agent is
 inactive while its group flies on, and a group reset revives everyone); the
 batch is a SharedRolloutBatch for the MAPPO trainer, its bootstrap value
-taken on the centralized obs. The pool, the ELO eval and the collect loop
-are SelfplayRunner's.
+taken on the centralized obs. The pool, the ELO eval, the collect loop and
+the mesh (`mesh=`) are SelfplayRunner's; the trainer all-reduces the
+count of active agents.
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ class MAPPOSelfplayRunner(SelfplayRunner):
                              env.num_actions, act_space=getattr(env, "action_space", None),
                              prior_slots=getattr(env, "shoot_prior_slots", (11, 13)),
                              device=self.device)
-        return policy, MAPPOTrainer(cfg, policy)
+        return policy, MAPPOTrainer(cfg, policy, self.mesh)
 
     def init_carry(self, seed: int) -> SelfplayCarry:
         carry = super().init_carry(seed)

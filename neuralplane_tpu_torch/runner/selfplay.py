@@ -18,6 +18,16 @@ torch.save of the actor's state_dict); a resumed run also imports a JAX
 run's `actor_<name>.pkl` entries, read without JAX. The pool's ratings and
 the ego's ELO ride in the runner's checkpoint (`_extra_state`), so PFSP's
 weighting and the ladder survive a restart.
+
+Over a mesh (JAX :82-90, :475-477) the env is this rank's share of the
+global batch, and the K pool slices are cut from each rank's share: its
+local num_envs must divide by K. `self.rng`, which draws the opponents, is
+seeded with cfg.seed on every rank, so all ranks draw the same names.
+Rank 0 writes the pool files, and a barrier follows before any rank reads
+them, so all ranks must see the run directory's filesystem. The ELO eval all-reduces its per-slice sums (rewards, episode ends,
+wins, losses) before the update, so every rank holds the same `latest_elo`
+and pool ratings; `steps_per_episode` is global, and the logged reward
+sums and `shoot_*` counters are summed over the ranks before dividing.
 """
 from __future__ import annotations
 
@@ -35,6 +45,7 @@ from ..algorithms.networks import params_from_jax
 from ..algorithms.ppo.buffer import RolloutBatch
 from ..algorithms.rl_config import RLConfig
 from ..algorithms.selfplay import choose_opponent, elo_update, elo_update_scored
+from ..parallel.mesh import Mesh, all_reduce_sum, barrier
 from ..utils.checkpoint import load_checkpoint, load_jax_pickle, save_checkpoint
 from .base import Runner
 
@@ -98,15 +109,18 @@ class SelfplayRunner(Runner):
 
     def __init__(self, env, cfg: RLConfig, run_dir: str = "runs/selfplay",
                  eval_env=None, model_dir: Optional[str] = None,
-                 use_tensorboard: bool = False):
-        super().__init__(env, cfg, run_dir, eval_env, model_dir, use_tensorboard)
+                 use_tensorboard: bool = False, mesh: Optional[Mesh] = None):
+        super().__init__(env, cfg, run_dir, eval_env, model_dir, use_tensorboard,
+                         mesh=mesh)
         self.num_envs = env.num_envs
         self.num_agents = env.num_agents
         self.half = self.num_agents // 2
         self.n_ego = env.num_envs * self.half
         self.num_opponents = max(1, cfg.n_choose_opponents)
-        assert env.num_envs % self.num_opponents == 0, (
-            "num_envs must divide evenly into opponent slices")
+        if env.num_envs % self.num_opponents:
+            raise ValueError(f"num_envs={env.num_envs} (this rank's share) must divide "
+                             f"evenly into {self.num_opponents} opponent slices")
+        # the same on every rank: the ranks draw the same opponents
         self.rng = np.random.default_rng(cfg.seed)
         # one frozen actor per pool slice, loaded from the pool
         self.opponents: List[torch.nn.Module] = [
@@ -144,12 +158,14 @@ class SelfplayRunner(Runner):
                 continue
             name, src = stem[len("actor_"):], os.path.join(src_dir, fname)
             dst = self._pool_path(name)
-            if ext == ".pkl":
-                save_checkpoint(dst, params_from_jax(load_jax_pickle(src)))
-            elif os.path.abspath(src) != os.path.abspath(dst):
-                shutil.copy(src, dst)
+            if self.rank == 0:   # one writer; the barrier below
+                if ext == ".pkl":
+                    save_checkpoint(dst, params_from_jax(load_jax_pickle(src)))
+                elif os.path.abspath(src) != os.path.abspath(dst):
+                    shutil.copy(src, dst)
             # the checkpoint's rating where it has one, else the current one
             self.policy_pool[name] = self._restored_ratings.get(name, self.latest_elo)
+        barrier(self.mesh)
         if self.policy_pool:
             logging.info("Imported %d pool entries from %s", len(self.policy_pool), src_dir)
 
@@ -158,8 +174,10 @@ class SelfplayRunner(Runner):
         return str(max(nums) + 1 if nums else 0)
 
     def _save_pool_entry(self, name: str) -> None:
-        save_checkpoint(self._pool_path(name), {k: v.detach().cpu() for k, v in
-                                                self.policy.actor.state_dict().items()})
+        if self.rank == 0:
+            save_checkpoint(self._pool_path(name), {k: v.detach().cpu() for k, v in
+                                                    self.policy.actor.state_dict().items()})
+        barrier(self.mesh)
         self.policy_pool[name] = self.latest_elo
 
     def _stack_opponents(self, names) -> List[torch.nn.Module]:
@@ -343,13 +361,18 @@ class SelfplayRunner(Runner):
             keep = (1.0 - reset)[:, :, None]
             h_a, h_opp = h_a * keep, h_opp * keep
 
-        # average episode reward per pool slice over completed episodes
-        slice_ends = pool_slices(ends, K).sum(dim=(1, 2))
+        # average episode reward per pool slice over completed episodes; the
+        # per-slice sums over every rank's slice k
+        sums = torch.stack([pool_slices(sum_ego, K).sum(dim=(1, 2)),
+                            pool_slices(sum_opp, K).sum(dim=(1, 2)),
+                            pool_slices(ends, K).sum(dim=(1, 2)),
+                            eps_pe.reshape(K, -1).sum(1), wins_pe.reshape(K, -1).sum(1),
+                            losses_pe.reshape(K, -1).sum(1)])
+        all_reduce_sum([sums], self.mesh)
+        slice_ends = sums[2]
         denom = slice_ends.clamp_min(1.0)
-        per_slice = torch.stack([pool_slices(sum_ego, K).sum(dim=(1, 2)) / denom,
-                                 pool_slices(sum_opp, K).sum(dim=(1, 2)) / denom,
-                                 eps_pe.reshape(K, -1).sum(1), wins_pe.reshape(K, -1).sum(1),
-                                 losses_pe.reshape(K, -1).sum(1)]).double().cpu().numpy()
+        per_slice = torch.stack([sums[0] / denom, sums[1] / denom, *sums[3:]]
+                                ).double().cpu().numpy()
         ego_rew, opp_rew, eps_s, wins_s, losses_s = per_slice
         ended = float(slice_ends.sum()) / half
         opp_elo = np.array([self.policy_pool[n] for n in names])
@@ -371,7 +394,7 @@ class SelfplayRunner(Runner):
     def run(self) -> Dict[str, float]:
         cfg = self.cfg
         carry = self.init_carry(self.next_seed())
-        steps_per_episode = cfg.buffer_size * self.n_ego
+        steps_per_episode = cfg.buffer_size * self.n_ego * self.world
         episodes = max(1, int(cfg.num_env_steps) // steps_per_episode)
         start = time.time()
         train_infos: Dict[str, float] = {}
@@ -380,14 +403,18 @@ class SelfplayRunner(Runner):
             train_infos = self.train(batch)
             total = (episode + 1) * steps_per_episode
             if episode % cfg.log_interval == 0:
+                # reward sums, episode ends and shoot_* counters over the ranks
                 ends = (batch.masks[1:] == 0).sum() + (batch.bad_masks[1:] == 0).sum()
+                shoot = [k for k in counters if k.startswith("shoot_")]
+                sums = torch.stack([batch.rewards.sum(), ends.float()]
+                                   + [counters[k].float() for k in shoot])
+                all_reduce_sum([sums], self.mesh)
                 train_infos["average_episode_rewards"] = float(
-                    batch.rewards.sum() / ends.clamp_min(1))
+                    sums[0] / sums[1].clamp_min(1))
                 train_infos["fps"] = int(total / (time.time() - start))
                 train_infos["latest_elo"] = self.latest_elo
-                for k, v in counters.items():
-                    if k.startswith("shoot_"):
-                        train_infos[k] = round(float(v), 3)
+                for k, v in zip(shoot, sums[2:].tolist()):
+                    train_infos[k] = round(v, 3)
                 self.log_info(train_infos, total)
             if cfg.use_eval and episode % cfg.eval_interval == 0 and episode:
                 self.log_info(self.eval_elo(), total)

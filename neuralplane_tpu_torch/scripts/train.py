@@ -24,9 +24,22 @@ missiles (`scripts/train_shoot.sh`). `--env-name MultipleCombat` and
 `--algorithm-name mappo` (MAPPOSelfplayRunner, a centralized critic;
 `scripts/train_multiplecombat_shoot.sh`), as in the JAX CLI. `--model-dir`
 resumes from the port's checkpoints and from the JAX package's (a run
-directory, `state_*.pkl`, `results/*/policy_checkpoint.pkl`). `--use-mesh`
-(data parallelism over several cards) raises NotImplementedError naming its
-ROADMAP.md item.
+directory, `state_*.pkl`, `results/*/policy_checkpoint.pkl`).
+
+`--use-mesh` trains data-parallel, one process per rank, under a launcher:
+
+  python -m torch.distributed.run --standalone --nproc-per-node 2 \
+      -m neuralplane_tpu_torch.scripts.train --use-mesh ...
+
+Each rank initializes torch.distributed from the launcher's environment
+(parallel/distributed.py: NCCL when every rank has a card of its own, gloo
+on the CPU or when ranks share a card) and runs on cuda:LOCAL_RANK (or the
+`--device` given). `--n-rollout-threads` stays the global count: each rank
+builds `n_rollout_threads // world` envs (and the eval env likewise), which
+must divide. Every runner gets the mesh: F16SimRunner, SelfplayRunner and
+MAPPOSelfplayRunner (the JAX CLI passes it to F16SimRunner only, :236-250).
+Without a launcher the world size is 1 and the run is the one without the
+flag.
 """
 from __future__ import annotations
 
@@ -35,9 +48,12 @@ import logging
 import os
 import time
 
+import torch
+
 from ..algorithms.rl_config import RLConfig
 from .. import envs
 from ..envs.planning import load_low_level_ckpt
+from ..parallel import Mesh, broadcast, make_global_mesh, shard_count
 from ..runner import F16SimRunner, MAPPOSelfplayRunner, SelfplayRunner
 
 # the combat envs by --env-name
@@ -141,8 +157,9 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--low-level-ckpt", default=None,
                    help="Planning env: trained control-task actor checkpoint")
     p.add_argument("--use-mesh", action="store_true",
-                   help="data parallelism over several cards: not in the port "
-                   "yet (ROADMAP.md section 1, item 18)")
+                   help="data parallelism, one process per rank under "
+                   "torch.distributed.run: the env batch split over the ranks, "
+                   "the policy replicated, gradients all-reduced")
     # the port's own
     p.add_argument("--device", default="cuda",
                    help="torch device of the env, the policy and the update "
@@ -197,8 +214,12 @@ def args_to_config(args: argparse.Namespace) -> RLConfig:
     )
 
 
-def make_env(args: argparse.Namespace, num_envs: int = None):
+def make_env(args: argparse.Namespace, num_envs: int = None, mesh: Mesh = None):
+    """The env of `num_envs` (default --n-rollout-threads) envs in all; with
+    a mesh, this rank's share of them."""
     n = num_envs if num_envs is not None else args.n_rollout_threads
+    if mesh is not None:
+        n = shard_count(n, mesh)
     if args.env_name == "Control":
         return envs.ControlEnv(num_envs=n, config=args.scenario_name,
                           model=args.model_name, aero_backend=args.aero_backend,
@@ -222,23 +243,29 @@ def main(argv=None) -> None:
             "team env has mid-episode deaths, and only the MAPPO runner's "
             "active_masks stop dead agents' frozen-corpse transitions from "
             "training at full weight")
+    mesh = None
     if args.use_mesh:
-        raise NotImplementedError("--use-mesh: data parallelism is ROADMAP.md "
-                                  "section 1, item 18")
+        mesh = make_global_mesh(args.device)
+        args.device = str(mesh.device)
     cfg = args_to_config(args)
-    env = make_env(args)
-    eval_env = (make_env(args, num_envs=args.n_eval_rollout_threads)
+    env = make_env(args, mesh=mesh)
+    eval_env = (make_env(args, num_envs=args.n_eval_rollout_threads, mesh=mesh)
                 if args.use_eval and args.n_eval_rollout_threads else None)
 
+    # rank 0's clock names a default run directory for every rank
+    stamp = torch.tensor([time.time()], dtype=torch.float64,
+                         device=mesh.device if mesh is not None else "cpu")
+    broadcast([stamp], mesh)
     run_dir = args.run_dir or os.path.join(
-        "runs", f"{time.strftime('%Y-%m-%d_%H-%M-%S')}_{args.env_name}_"
-        f"{args.scenario_name}_{args.model_name}_{args.algorithm_name}_"
+        "runs", f"{time.strftime('%Y-%m-%d_%H-%M-%S', time.localtime(stamp.item()))}_"
+        f"{args.env_name}_{args.scenario_name}_{args.model_name}_{args.algorithm_name}_"
         f"{args.experiment_name}")
     runner_cls = F16SimRunner
     if args.use_selfplay:
         runner_cls = MAPPOSelfplayRunner if args.algorithm_name == "mappo" else SelfplayRunner
     runner = runner_cls(env, cfg, run_dir=run_dir, eval_env=eval_env,
-                        model_dir=args.model_dir, use_tensorboard=args.use_tensorboard)
+                        model_dir=args.model_dir, use_tensorboard=args.use_tensorboard,
+                        mesh=mesh)
     try:
         runner.run()
     finally:

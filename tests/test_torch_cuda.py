@@ -299,7 +299,7 @@ def test_grouped_totals_kernel_ragged_sizes_on_card(n):
     assert torch.equal(got, tgrp.aero_totals(w, feats)[:, :n])
 
 
-def card_runner(tmp_path, n=64, **over):
+def card_runner(tmp_path, n=64, mesh=None, **over):
     """A small F16SimRunner on the card (distilled backend, the fused step)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
@@ -310,7 +310,7 @@ def card_runner(tmp_path, n=64, **over):
                    hidden_sizes=(32, 32), act_hidden_sizes=(32,),
                    recurrent_hidden_size=32, **over)
     env = ControlEnv(num_envs=n, config="heading", aero_backend="distilled", device="cuda")
-    return F16SimRunner(env, cfg, run_dir=str(tmp_path))
+    return F16SimRunner(env, cfg, run_dir=str(tmp_path), mesh=mesh)
 
 
 @pytest.mark.cuda
@@ -593,3 +593,36 @@ def test_export_on_the_card(shoot):
         a, h2 = infer(obs, h, mask)
         assert a.is_cuda and torch.allclose(a, a_ref, rtol=1e-6, atol=1e-6)
         assert torch.allclose(h2, h_ref, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_world_one_nccl_mesh_is_the_run_without_one(tmp_path):
+    """The backend rule picks NCCL for one rank with a card of its own; a
+    world-1 NCCL group's mesh runs the collect and update of the run without
+    a mesh bit for bit, and closing the runner destroys the group."""
+    import socket
+    import torch.distributed as dist
+    from neuralplane_tpu_torch.parallel import card_id, choose_backend, make_mesh
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: NCCL runs on the card")
+    assert choose_backend([card_id("cuda:0")]) == "nccl"
+    runs = []
+    for name in ("plain", "mesh"):
+        mesh = None
+        if name == "mesh":
+            with socket.socket() as s:
+                s.bind(("localhost", 0))
+                port = s.getsockname()[1]
+            dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                                    world_size=1, rank=0)
+            mesh = make_mesh("cuda", owns_group=True)
+        run = card_runner(tmp_path / name, mesh=mesh)
+        _, batch, _ = run.collect(run.init_carry(run.next_seed()))
+        metrics = run.train(batch)
+        run.close()
+        runs.append((run, metrics, mesh))
+    (plain, m_plain, _), (meshed, m_mesh, mesh) = runs
+    assert m_plain == m_mesh
+    for (k, a), b in zip(plain.policy.state_dict().items(), meshed.policy.state_dict().values()):
+        assert torch.equal(a, b), k
+    assert mesh.stats["all_reduce_calls"] > 0 and not dist.is_initialized()

@@ -16,6 +16,8 @@ from neuralplane_tpu_torch.envs import (ControlEnv, Env, MultipleCombatEnv,
                                         MultipleCombatShootEnv, PlanningEnv, SingleCombatEnv,
                                         SingleCombatShootEnv, make_control_vec_env)
 from neuralplane_tpu_torch.measure import measure_env_step
+from neuralplane_tpu_torch.parallel import (card_id, init_distributed, local_device,
+                                            make_global_mesh, make_mesh)
 from neuralplane_tpu_torch.ops.aero import (load_aero_weights, load_distilled,
                                             select_aero_weights)
 from neuralplane_tpu_torch.ops.task_cuda import task_step
@@ -44,8 +46,8 @@ print(" ".join(names))
 
 # modules added with the other airframes, the planning env, the gym
 # adapters, the classical controllers, the combat envs, self-play, the
-# action heads, the missiles and MAPPO: each must be among those imported
-# above
+# action heads, the missiles, MAPPO, the tooling and data parallelism: each
+# must be among those imported above
 NEW_MODULES = ("ops.linear_aero", "models.uav", "models.c172p", "envs.planning",
                "envs.wrappers", "runner.gym_adapter", "algorithms.pid",
                "algorithms.pid.config", "algorithms.pid.pid", "algorithms.pid.attitude",
@@ -57,7 +59,8 @@ NEW_MODULES = ("ops.linear_aero", "models.uav", "models.c172p", "envs.planning",
                "surrogates.train", "surrogates.distill", "utils.geodesy", "render",
                "render.acmi", "render.trajectory", "utils.export", "utils.profiling",
                "scripts.distill_aero", "scripts.train_surrogates", "scripts.render",
-               "scripts.export", "scripts.supervise")
+               "scripts.export", "scripts.supervise", "parallel", "parallel.distributed",
+               "parallel.mesh")
 
 
 def test_port_imports_no_jax():
@@ -76,7 +79,9 @@ def test_port_imports_no_jax():
                                    PPOPolicy, PlanningEnv, make_control_vec_env, GymRunner,
                                    SingleCombatEnv, MultipleCombatEnv,
                                    Controller().init_state, SingleCombatShootEnv,
-                                   MultipleCombatShootEnv, MAPPOPolicy, train_surrogate])
+                                   MultipleCombatShootEnv, MAPPOPolicy, train_surrogate,
+                                   card_id, init_distributed, local_device,
+                                   make_global_mesh, make_mesh])
 def test_entry_points_default_to_cuda(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
 

@@ -305,15 +305,7 @@ def test_cli_trains_planning_on_cpu(tmp_path):
     assert second["step"] == 2 * first["step"] > 0
 
 
-@pytest.mark.parametrize("extra,match", [
-    pytest.param(["--use-mesh"], "item 18", id="extra3-item 18"),
-])
-def test_cli_names_what_is_not_ported(tmp_path, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
-        train_cli.main(CLI + ["--run-dir", str(tmp_path / "run")] + extra)
-
-
-# the missile and MAPPO branches, once the not-ported cases above
+# the missile and MAPPO branches
 MISSILE_CLI = {
     "SingleCombatShoot": ["--env-name", "SingleCombatShoot", "--scenario-name",
                           "selfplay_shoot", "--n-rollout-threads", "2"],
