@@ -104,14 +104,25 @@ Phases, each reported on its own line:
      (b) one episode of train_selfplay.sh's configuration at 1000 envs in
      all and one ELO eval cut to 100 steps, the ranks' ELO and pool equal;
      (c) the train CLI under torch.distributed.run with --use-mesh at a small
-     Control configuration.
+     Control configuration;
+
+ 34. the throughput harness (measure.py, scripts/bench.py): (a) the bench
+     CLI in a subprocess with --aero distilled and --aero pallas at n and
+     the timed steps of 6 and 12, its last line's keys, its s/step beside
+     theirs; (b) measure_sweep, the heading step at 10^0..10^6 aircraft for
+     50 steps per row; (c) measure_combat_sweep, the four combat envs at
+     10^1..10^5 aircraft for 20 steps per row, the shoot bit held high on
+     the missile envs, then one measured step of each under CUDA's sync
+     debug mode; (d) measure_combat_step for the 1v1 envs on
+     aero_backend="pallas" (nlplant_grouped) at 10^3 and 10^5 aircraft, one
+     step at 10^5 against the plain 43-net xdot.
 
 The launch counters are set to 0 just before phases 6, 7, 12, 13, 14, 15,
 16, 17, 18, each eval of 19, each timed run of 20 and 23, the runs of 21,
-24 and 25, the evals of 22 and 26, each render of 29, each run of 32 and
-each rank's runs in 33, and read just after; a kernel of the path that did
-not launch, or one that launched off its path in 17-26, 29, 32 and 33,
-fails the run. Any
+24 and 25, the evals of 22 and 26, each render of 29, each run of 32,
+each rank's runs in 33 and each row of 34(b-d), and read just after; a
+kernel of the path that did not launch, or one that launched off its path
+in 17-26, 29 and 32-34, fails the run. Any
 mismatch, non-finite value or failed check exits non-zero. The
 second-to-last line is the kernel table as JSON, the last line the device
 record.
@@ -1458,13 +1469,14 @@ def random_actions(env, g: torch.Generator, fire_share: float = SHOOT_SHARE):
 
 def combat_step_vs_plain(env, name: str, warm: int = 5, phase: int = 20) -> None:
     """From a state carried through `warm` steps of random actions (on a
-    missile env, steps that fire), one more step with nlplant_distilled and
-    the same step with its plain version on the card (same generator state,
-    same actions), under COMBAT_LIMITS; on a missile env also the missiles'
-    positions and velocities, and ammo, cooldown, the active slots and the
-    launch and hit counts exactly."""
+    missile env, steps that fire), one more step with the xdot kernel of the
+    env's aero container (nlplant_distilled, or nlplant_grouped on the 43
+    nets) and the same step with its plain version on the card (same
+    generator state, same actions), under COMBAT_LIMITS; on a missile env
+    also the missiles' positions and velocities, and ammo, cooldown, the
+    active slots and the launch and hit counts exactly."""
     import functools
-    from neuralplane_tpu_torch.ops import aero_cuda
+    from neuralplane_tpu_torch.ops import aero_cuda, aero_grouped_cuda
     g = torch.Generator(device="cuda").manual_seed(5)
 
     def act():
@@ -1476,8 +1488,9 @@ def combat_step_vs_plain(env, name: str, warm: int = 5, phase: int = 20) -> None
     gen = env.generator.get_state()
     got_st, got = env.step(st, a)
     env.generator.set_state(gen)
-    env.model.dynamics = functools.partial(aero_cuda.nlplant_distilled_plain,
-                                           env.model.weights)
+    plain = (aero_grouped_cuda.nlplant_grouped_plain if is_grouped(env.model.weights)
+             else aero_cuda.nlplant_distilled_plain)
+    env.model.dynamics = functools.partial(plain, env.model.weights)
     try:
         want_st, want = env.step(st, a)
     finally:
@@ -2623,6 +2636,138 @@ def phase_torchrun(phase=33):
                        f"{out[-3000:]}")
 
 
+# Phase 34: the throughput harness (measure.py, scripts/bench.py). The CLI
+# runs at the JAX package's headline width and the default steps of this
+# script; the sweeps are cut in depth only (50 heading steps per row, the
+# combat sweep to 10^5 aircraft at 20 steps per row; the JAX protocol is
+# 500 and 200 steps to 10^6, run outside this script, results/bench_torch).
+BENCH_CLI_KEYS = {"metric", "value", "unit", "vs_baseline", "aero_backend", "device"}
+BENCH_SWEEP_STEPS = 50
+BENCH_COMBAT_MAX_EXP = 5
+BENCH_COMBAT_STEPS = 20
+# env name -> (agents per env group, FDM steps per env step, xdot launches
+# per env step); the reset launches the xdot kernel once
+BENCH_COMBAT = {"SingleCombat": (2, 5, 11), "SingleCombatShoot": (2, 5, 11),
+                "MultipleCombat": (4, 1, 3), "MultipleCombatShoot": (4, 1, 3)}
+# the 1v1 steps on the 43 nets (aero_backend="pallas")
+BENCH_PALLAS_N = (10 ** 3, 10 ** 5)
+
+
+def held_action(env, name: str) -> torch.Tensor:
+    """measure_combat_step's action: mid-bin demands with the shoot bit
+    held high on the missile envs, the near-trim action on the others."""
+    row = [20.0, 20.0, 20.0, 20.0, 1.0] if name.endswith("Shoot") else [1.0, 0.0, 0.0, 0.0]
+    return torch.tensor([row], device="cuda").repeat(env.n, 1)
+
+
+def phase_bench_cli(table, n: int, steps: int, phase=34) -> None:
+    """(a): `python -m neuralplane_tpu_torch.scripts.bench --aero distilled`
+    and `--aero pallas` in a subprocess (the build cached by phase 2): exit
+    0, the last line's keys, its s/step beside phases 6 and 12's."""
+    for aero, key in (("distilled", "env_step"), ("pallas", "env_step_grouped")):
+        cmd = [sys.executable, "-m", "neuralplane_tpu_torch.scripts.bench", "--aero", aero,
+               "--n", str(n), "--steps", str(steps)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise Mismatch(f"phase {phase}a: the bench CLI --aero {aero} exited "
+                           f"{proc.returncode}: {(proc.stdout + proc.stderr)[-3000:]}")
+        last = json.loads(proc.stdout.strip().splitlines()[-1])
+        ms, main_ms = last["value"] * 1e3, table[key]["step_ms"]
+        log(f"phase {phase}a bench CLI --aero {aero} --n {n} --steps {steps}: exit 0 in "
+            f"{wall:.1f} s, {json.dumps(last)}; {ms:.4f} ms/step against "
+            f"{main_ms:.4f} in phase {6 if aero == 'distilled' else 12} "
+            f"(ratio {ms / main_ms:.3f})")
+        if set(last) != BENCH_CLI_KEYS or last["aero_backend"] != aero \
+                or last["device"] != torch.cuda.get_device_name(0):
+            raise Mismatch(f"phase {phase}a: the CLI's last line {last}")
+        if not 2 / 3 <= ms / main_ms <= 1.5:
+            raise Mismatch(f"phase {phase}a: the CLI's {ms:.4f} ms/step is not the main "
+                           f"path's {main_ms:.4f}")
+
+
+def phase_bench_sweep(table, phase=34) -> None:
+    """(b): measure_sweep to 10^6 aircraft, BENCH_SWEEP_STEPS steps per row:
+    env_step once per step and at the warm-up, nothing else, per row; the
+    state finite."""
+    from neuralplane_tpu_torch.measure import measure_sweep
+    total = 0
+    zero_counts()
+    for e, row in enumerate(measure_sweep(max_exp=6, steps=BENCH_SWEEP_STEPS)):
+        counts = read_counts()
+        zero_counts()
+        log(f"phase {phase}b {json.dumps(row)} launches {counts}")
+        if "error" in row or not row["finite"] or row["n"] != 10 ** e:
+            raise Mismatch(f"phase {phase}b: heading sweep row {row}")
+        check_counts(f"heading sweep n={row['n']}", counts,
+                     {"env_step": BENCH_SWEEP_STEPS + 1})
+        total += counts["env_step"]
+    table["env_step"]["launches_bench_sweep"] = total
+
+
+def phase_bench_combat_sweep(table, phase=34) -> None:
+    """(c): measure_combat_sweep over the four envs to 10^BENCH_COMBAT_MAX_EXP
+    aircraft, BENCH_COMBAT_STEPS steps per row: nlplant_distilled 11 (1v1)
+    or 3 (team) times per step, at the warm-up and once at the reset,
+    nothing else, per row; n rounded down to whole env groups and the inner
+    FDM steps as on the CPU; then one step of each env under CUDA's sync
+    debug mode."""
+    from neuralplane_tpu_torch.measure import measure_combat_step, measure_combat_sweep
+    want = [(name, 10 ** e) for name in BENCH_COMBAT
+            for e in range(1, BENCH_COMBAT_MAX_EXP + 1)]
+    total = 0
+    zero_counts()
+    rows = measure_combat_sweep(max_exp=BENCH_COMBAT_MAX_EXP, steps=BENCH_COMBAT_STEPS)
+    for (name, asked), row in zip(want, rows, strict=True):
+        counts = read_counts()
+        zero_counts()
+        agents, inner, per_step = BENCH_COMBAT[name]
+        log(f"phase {phase}c {json.dumps(row)} launches {counts}")
+        groups = max(1, asked // agents)
+        if "error" in row or not row["finite"] or row["env"] != name \
+                or (row["n"], row["num_envs"], row["inner_fdm_steps"]) != \
+                (groups * agents, groups, inner):
+            raise Mismatch(f"phase {phase}c: combat sweep row {row} for {name} at n={asked}")
+        check_counts(f"{name} sweep n={row['n']}", counts,
+                     {"nlplant_distilled": 1 + per_step * (BENCH_COMBAT_STEPS + 1)})
+        total += counts["nlplant_distilled"]
+    table["nlplant_distilled"]["launches_bench_combat_sweep"] = total
+    for name in BENCH_COMBAT:
+        r = measure_combat_step(10 ** 3, steps=1, env_name=name)
+        env = r["env_obj"]
+        step_under_sync_debug(env, r["state"], held_action(env, name), f"the {name} step")
+        log(f"phase {phase}c one measured {name} step under sync debug mode 'error': "
+            f"no host sync OK")
+
+
+def phase_bench_pallas(table, phase=34) -> None:
+    """(d): measure_combat_step for the 1v1 envs on aero_backend="pallas" at
+    BENCH_PALLAS_N aircraft: nlplant_grouped 11 times per step, at the
+    warm-up and once at the reset, nothing else; at the larger size one step
+    against the same step with the plain 43-net xdot (combat_step_vs_plain)."""
+    from neuralplane_tpu_torch.measure import measure_combat_step
+    total = 0
+    for name in ("SingleCombat", "SingleCombatShoot"):
+        for n in BENCH_PALLAS_N:
+            zero_counts()
+            r = measure_combat_step(n, steps=BENCH_COMBAT_STEPS, env_name=name,
+                                    aero_backend="pallas")
+            counts = read_counts()
+            env = r["env_obj"]
+            row = {k: v for k, v in r.items() if k not in ("env_obj", "state", "out")}
+            log(f"phase {phase}d {json.dumps(row)} aero_backend=pallas launches {counts}")
+            check_counts(f"{name} pallas n={n}", counts,
+                         {"nlplant_grouped": 1 + 11 * (BENCH_COMBAT_STEPS + 1)})
+            if not r["finite"] or not is_grouped(env.model.weights):
+                raise Mismatch(f"phase {phase}d: {name} on pallas: {row}")
+            total += counts["nlplant_grouped"]
+            if n == BENCH_PALLAS_N[-1]:
+                combat_step_vs_plain(env, f"{name}(pallas)", phase=phase)
+            del r, env
+    table["nlplant_grouped"]["launches_bench_combat_pallas"] = total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=10 ** 6, help="aircraft per batch")
@@ -2638,6 +2783,7 @@ def main(argv=None) -> int:
     from neuralplane_tpu_torch.ops import cuda_build
     from neuralplane_tpu_torch.ops.aero import load_distilled, select_aero_weights
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     card = card_line()
     log(f"phase 1 card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
@@ -2706,6 +2852,13 @@ def main(argv=None) -> int:
     phase_world_one(table)
     phase_two_ranks(table)
     log(f"phases 32-33: {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    phase_bench_cli(table, args.n, args.steps)
+    phase_bench_sweep(table)
+    phase_bench_combat_sweep(table)
+    phase_bench_pallas(table)
+    log(f"phase 34: {time.perf_counter() - t0:.1f} s wall")
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall in all")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

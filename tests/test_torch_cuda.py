@@ -6,7 +6,8 @@ in the distilled kernels, 32 in the 43-net ones); and the training loop on
 the card (collects launch env_step once per step, the policy on the card
 agrees with its CPU copy), and the combat and missile steps (the xdot
 kernel against its plain version, no host sync, a MAPPO collect with no
-host sync). Every test here is marked
+host sync), and the throughput harness's 1v1 missile step on the 43 nets.
+Every test here is marked
 `cuda` and skips without an NVIDIA GPU. The file imports no JAX, so that it
 runs where only PyTorch is installed:
 
@@ -626,3 +627,41 @@ def test_world_one_nccl_mesh_is_the_run_without_one(tmp_path):
     for (k, a), b in zip(plain.policy.state_dict().items(), meshed.policy.state_dict().values()):
         assert torch.equal(a, b), k
     assert mesh.stats["all_reduce_calls"] > 0 and not dist.is_initialized()
+
+
+@pytest.mark.cuda
+def test_measured_shoot_step_on_the_43_nets():
+    """measure_combat_step on the 1v1 missile env with aero_backend="pallas"
+    (chip_smoke.py phase 34(d) at a small size): nlplant_grouped launches 11
+    times per step (plus one at the reset), nlplant_distilled and env_step
+    never; one more step from the measured state, held high, against the
+    same step with the plain 43-net xdot, as the shoot test holds it."""
+    import functools
+    from neuralplane_tpu_torch.measure import measure_combat_step
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    kernels = (tgrp.nlplant_grouped, aero_cuda.nlplant_distilled, step_cuda.env_step)
+    for k in kernels:
+        k.launches = 0
+    r = measure_combat_step(1000, steps=5, env_name="SingleCombatShoot", aero_backend="pallas")
+    assert [k.launches for k in kernels] == [1 + 11 * 6, 0, 0]
+    assert r["n"] == 1000 and r["finite"] and r["device"] == torch.cuda.get_device_name()
+    env, st = r["env_obj"], r["state"]
+    assert isinstance(env.model.weights, taero.GroupedAeroWeights)
+    a = torch.tensor([[20.0, 20.0, 20.0, 20.0, 1.0]], device="cuda").repeat(env.n, 1)
+    gen = env.generator.get_state()
+    gs, g = env.step(st, a)
+    env.generator.set_state(gen)
+    env.model.dynamics = functools.partial(tgrp.nlplant_grouped_plain, env.model.weights)
+    ws, w = env.step(st, a)
+    torch.cuda.synchronize()
+    n = env.n
+    for got, want in ((g.obs, w.obs), (gs.model.s, ws.model.s), (g.reward, w.reward),
+                      (gs.missiles.pos, ws.missiles.pos)):
+        scale = want.reshape(n, -1).pow(2).mean(0).sqrt().clamp_min(1e-6)
+        err = (got - want).reshape(n, -1).abs() / scale
+        assert err.median(0).values.max() < 1e-4 and err.max() < 1.0
+        assert (err > 1e-3).float().mean(0).max() <= 5e-2
+    for got, want in ((gs.ammo, ws.ammo), (gs.cooldown, ws.cooldown),
+                      (gs.missiles.active, ws.missiles.active), (g.done, w.done)):
+        assert (got != want).reshape(n, -1).any(1).float().mean() <= 1e-2

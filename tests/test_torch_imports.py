@@ -15,13 +15,15 @@ from neuralplane_tpu_torch.algorithms.pid import Controller
 from neuralplane_tpu_torch.envs import (ControlEnv, Env, MultipleCombatEnv,
                                         MultipleCombatShootEnv, PlanningEnv, SingleCombatEnv,
                                         SingleCombatShootEnv, make_control_vec_env)
-from neuralplane_tpu_torch.measure import measure_env_step
+from neuralplane_tpu_torch.measure import (measure_combat_step, measure_combat_sweep,
+                                           measure_env_step, measure_sweep)
 from neuralplane_tpu_torch.parallel import (card_id, init_distributed, local_device,
                                             make_global_mesh, make_mesh)
 from neuralplane_tpu_torch.ops.aero import (load_aero_weights, load_distilled,
                                             select_aero_weights)
 from neuralplane_tpu_torch.ops.task_cuda import task_step
 from neuralplane_tpu_torch.runner import GymRunner
+from neuralplane_tpu_torch.scripts import bench as bench_cli
 from neuralplane_tpu_torch.scripts import distill_aero as distill_cli
 from neuralplane_tpu_torch.scripts import export as export_cli
 from neuralplane_tpu_torch.scripts import render as render_cli
@@ -46,8 +48,8 @@ print(" ".join(names))
 
 # modules added with the other airframes, the planning env, the gym
 # adapters, the classical controllers, the combat envs, self-play, the
-# action heads, the missiles, MAPPO, the tooling and data parallelism: each
-# must be among those imported above
+# action heads, the missiles, MAPPO, the tooling, data parallelism and the
+# throughput harness: each must be among those imported above
 NEW_MODULES = ("ops.linear_aero", "models.uav", "models.c172p", "envs.planning",
                "envs.wrappers", "runner.gym_adapter", "algorithms.pid",
                "algorithms.pid.config", "algorithms.pid.pid", "algorithms.pid.attitude",
@@ -60,7 +62,7 @@ NEW_MODULES = ("ops.linear_aero", "models.uav", "models.c172p", "envs.planning",
                "render.acmi", "render.trajectory", "utils.export", "utils.profiling",
                "scripts.distill_aero", "scripts.train_surrogates", "scripts.render",
                "scripts.export", "scripts.supervise", "parallel", "parallel.distributed",
-               "parallel.mesh")
+               "parallel.mesh", "measure", "scripts.bench")
 
 
 def test_port_imports_no_jax():
@@ -81,7 +83,8 @@ def test_port_imports_no_jax():
                                    Controller().init_state, SingleCombatShootEnv,
                                    MultipleCombatShootEnv, MAPPOPolicy, train_surrogate,
                                    card_id, init_distributed, local_device,
-                                   make_global_mesh, make_mesh])
+                                   make_global_mesh, make_mesh, measure_sweep,
+                                   measure_combat_step, measure_combat_sweep])
 def test_entry_points_default_to_cuda(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
 
@@ -143,7 +146,7 @@ def test_training_entry_points_target_cuda():
 
 @pytest.mark.parametrize("cli,argv", [
     (distill_cli, []), (surrogates_cli, ["--data-dir", "d"]), (render_cli, []),
-    (export_cli, ["--checkpoint", "c", "--out", "o", "--obs-dim", "22"])])
+    (export_cli, ["--checkpoint", "c", "--out", "o", "--obs-dim", "22"]), (bench_cli, [])])
 def test_tooling_clis_default_to_cuda(cli, argv):
     assert cli.get_parser().parse_args(argv).device == "cuda"
 
@@ -168,6 +171,22 @@ def test_tooling_entry_points_target_cuda(tmp_path):
     for run in runs:
         with pytest.raises((RuntimeError, AssertionError)):
             run()
+
+
+def test_bench_cli_targets_cuda(capsys):
+    """Without --device the bench CLI (and each of its measurements) fails
+    without a card and prints no result: no silent CPU fallback (on a card
+    it runs in chip_smoke.py phase 34)."""
+    if torch.cuda.is_available():
+        return
+    runs = [lambda: bench_cli.main(["--n", "2", "--steps", "1"]),
+            lambda: bench_cli.main(["--n", "2", "--steps", "1", "--sweep"]),
+            lambda: next(measure_combat_sweep(max_exp=1, steps=1)),
+            lambda: measure_combat_step(10, steps=1)]
+    for run in runs:
+        with pytest.raises((RuntimeError, AssertionError)):
+            run()
+    assert capsys.readouterr().out == ""
 
 
 LOADER_CHECK = r"""
