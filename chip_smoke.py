@@ -31,7 +31,8 @@ Phases, each reported on its own line:
  15. PPO training on the card, the repo's heading run configuration (3000
      envs, buffer 1000, distilled backend, default networks) for two
      episodes of collect + update through F16SimRunner.run; the policy on
-     the card against the same modules on the CPU;
+     the card against the same modules on the CPU; each episode's reward,
+     failures and entropy beside the JAX run's first lines (a log line);
  16. the JAX package's committed heading policy
      (results/heading/policy_checkpoint.pkl) flown by the port's eval on the
      43-net main path, against the JAX package's own eval value;
@@ -113,12 +114,18 @@ Phases, each reported on its own line:
      50 steps per row; (c) measure_combat_sweep, the four combat envs at
      10^1..10^5 aircraft for 20 steps per row, the shoot bit held high on
      the missile envs, then one measured step of each under CUDA's sync
-     debug mode; (d) measure_combat_step for the 1v1 envs on
+     debug mode; (d) measure_combat_step for the four combat envs on
      aero_backend="pallas" (nlplant_grouped) at 10^3 and 10^5 aircraft, one
-     step at 10^5 against the plain 43-net xdot.
+     step at 10^5 against the plain 43-net xdot; one high-level step of the
+     planning env on "pallas" at 1000 envs (100 launches), and one against
+     the plain 43-net xdot;
+ 35. the port's own heading run (results/heading_torch, trained on the card
+     from scratch and written as the JAX package's actor-only pickle)
+     flown as in 16, against the JAX package's eval of the same pickle;
+     2500 env_step launches, the success share logged.
 
 The launch counters are set to 0 just before phases 6, 7, 12, 13, 14, 15,
-16, 17, 18, each eval of 19, each timed run of 20 and 23, the runs of 21,
+16, 35, 17, 18, each eval of 19, each timed run of 20 and 23, the runs of 21,
 24 and 25, the evals of 22 and 26, each render of 29, each run of 32,
 each rank's runs in 33 and each row of 34(b-d), and read just after; a
 kernel of the path that did not launch, or one that launched off its path
@@ -955,6 +962,10 @@ def timed_runner(base=None):
     return Timed
 
 
+# phase 15's episodes beside the first lines of the JAX run's metrics.jsonl
+JAX_RUN_KEYS = ("average_episode_rewards", "episodes_failed", "policy_entropy_loss")
+
+
 def phase_train(episodes: int, table, phase=15):
     """PPO training on the card at the repo's heading run configuration
     (results/heading/REPORT.md): ControlEnv("heading", "distilled") at 3000
@@ -998,6 +1009,12 @@ def phase_train(episodes: int, table, phase=15):
         log(f"phase {phase} episode {ep}: collect {c_s * 1e3 / T:.4f} ms/step "
             f"({c_s:.3f} s), update {t_s:.3f} s, {T * n / (c_s + t_s):.4e} "
             f"agent-steps/s; metrics {json.dumps(rec)}")
+    with open(os.path.join(REPO, "results", "heading", "metrics.jsonl"), encoding="utf-8") as f:
+        jax_lines = [json.loads(line) for line in f][:episodes]
+    for ep, (rec, ref) in enumerate(zip(records, jax_lines)):
+        log(f"phase {phase} episode {ep} beside the JAX run's line at step {ref['step']} "
+            f"(results/heading, TPU v5e, the 43 nets; a log line, no gate): "
+            + ", ".join(f"{k} {rec[k]:.4f} / {ref[k]:.4f}" for k in JAX_RUN_KEYS))
     rel = policy_card_vs_cpu(runner.policy, runner.last_batch)
     c_s, t_s = runner.times["collect"][-1], runner.times["train"][-1]
     log(f"phase {phase} PPO training ControlEnv(heading, distilled) n={n}, buffer {T}, "
@@ -1098,6 +1115,81 @@ def phase_fly(table, n=1000, steps=2500, phase=16):
     table["env_step_grouped"]["launches_eval"] = launches
 
 
+# Phase 35: the port's own heading run (results/heading_torch, trained on the
+# card from scratch) flown by the port, against the JAX package's
+# F16SimRunner.eval of the same actor-only pickle on the CPU, as phase 16:
+# `python tools/heading_eval.py --package jax --backend pallas --interpret
+# --checkpoint results/heading_torch/policy_checkpoint.pkl --repeats 5`,
+# the mean over five keys; the limit is 2.5 times the largest key's
+# distance from the mean (relative), rounded up to a whole percent:
+# keys -364.1562, -364.9785, -363.7794, -361.2911, -364.7289 (spread 0.69%)
+PORT_HEADING_CKPT = os.path.join(REPO, "results", "heading_torch", "policy_checkpoint.pkl")
+JAX_HEADING_TORCH_KEYS = (-364.15618896484375, -364.9784851074219, -363.77935791015625,
+                          -361.2911376953125, -364.7288818359375)
+JAX_HEADING_TORCH_EVAL = -363.78681030273435
+HEADING_TORCH_REL_LIMIT = 0.02
+
+
+class CountingEnv:
+    """An env whose steps also sum the targets reached (`done`) and the
+    episodes failed (`bad_done`) on the card; everything else is the env's."""
+
+    def __init__(self, env):
+        self.env = env
+        self.reached = torch.zeros((), dtype=torch.int64, device=env.device)
+        self.failed = torch.zeros_like(self.reached)
+
+    def __getattr__(self, name):
+        return getattr(self.env, name)
+
+    def step(self, state, actions):
+        state, out = self.env.step(state, actions)
+        self.reached += out.done.sum()
+        self.failed += out.bad_done.sum()
+        return state, out
+
+
+def phase_fly_port_trained(table, n=1000, steps=2500, phase=35):
+    """results/heading_torch/policy_checkpoint.pkl (the port's heading run,
+    written as the JAX package's actor-only pickle) flown by the port as
+    phase 16 flies the JAX run's: F16SimRunner.eval on
+    ControlEnv("heading", aero_backend="pallas") at n envs for `steps` steps,
+    env_step launched once per step; the reward within
+    HEADING_TORCH_REL_LIMIT of JAX_HEADING_TORCH_EVAL; the success share
+    reached / (reached + failed) logged."""
+    import tempfile
+    from neuralplane_tpu_torch.algorithms.rl_config import RLConfig
+    from neuralplane_tpu_torch.envs import ControlEnv
+    from neuralplane_tpu_torch.ops import step_cuda
+    from neuralplane_tpu_torch.runner import F16SimRunner
+    env = ControlEnv(num_envs=n, config="heading", aero_backend="pallas", device="cuda")
+    with tempfile.TemporaryDirectory() as run_dir:
+        runner = F16SimRunner(env, RLConfig(), run_dir=run_dir, model_dir=PORT_HEADING_CKPT)
+        runner.close()
+    runner.eval_env = counting = CountingEnv(env)
+    step_cuda.env_step.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    value = runner.eval(steps)["eval_average_episode_rewards"]
+    wall = time.perf_counter() - t0
+    launches = step_cuda.env_step.launches
+    reached, failed = int(counting.reached), int(counting.failed)
+    share = reached / max(1, reached + failed)
+    rel = abs(value - JAX_HEADING_TORCH_EVAL) / abs(JAX_HEADING_TORCH_EVAL)
+    log(f"phase {phase} the port-trained heading policy (results/heading_torch) flown by "
+        f"the port: eval_average_episode_rewards {value:.4f} (the JAX package on the CPU, "
+        f"pallas: {JAX_HEADING_TORCH_EVAL:.4f}, keys "
+        f"{[round(k, 4) for k in JAX_HEADING_TORCH_KEYS]}, "
+        f"relative difference {rel:.4f}, limit {HEADING_TORCH_REL_LIMIT}); targets reached "
+        f"{reached}, episodes failed {failed}, success share {share:.4f}; n={n}, {steps} "
+        f"steps in {wall:.3f} s ({wall * 1e3 / steps:.4f} ms/step), env_step launches "
+        f"{launches}")
+    if launches != steps or not math.isfinite(value) or rel > HEADING_TORCH_REL_LIMIT:
+        raise Mismatch(f"phase {phase}: wrong launches or the port's eval reward is more "
+                       f"than {HEADING_TORCH_REL_LIMIT:.0%} away from the JAX package's")
+    table["env_step_grouped"]["launches_eval_port_trained"] = launches
+
+
 CONTROL_CKPT = os.path.join(REPO, "results", "control", "policy_checkpoint.pkl")
 # The JAX package's F16SimRunner.eval of the other committed policies on the
 # CPU at 1000 envs, each on the backend its phase flies, with the scenario's
@@ -1168,12 +1260,12 @@ def check_counts(what: str, counts: dict, expected: dict) -> None:
         raise Mismatch(f"{what}: kernel launches {counts}, want {want}")
 
 
-def planning_env(n: int):
-    """PlanningEnv("tracking", "distilled") over results/control's actor, on
+def planning_env(n: int, backend: str = "distilled"):
+    """PlanningEnv("tracking", backend) over results/control's actor, on
     the card."""
     from neuralplane_tpu_torch.envs import PlanningEnv
     from neuralplane_tpu_torch.envs.planning import load_low_level_ckpt
-    return PlanningEnv(num_envs=n, config="tracking", aero_backend="distilled",
+    return PlanningEnv(num_envs=n, config="tracking", aero_backend=backend,
                        low_level_params=load_low_level_ckpt(CONTROL_CKPT), device="cuda")
 
 
@@ -1258,7 +1350,7 @@ def planning_step_vs_plain(env, policy, warm: int = 5, phase: int = 18) -> None:
     nlplant_distilled's plain version on the card (same generator state,
     same actions), compared under PLAN_LIMITS."""
     import functools
-    from neuralplane_tpu_torch.ops import aero_cuda
+    from neuralplane_tpu_torch.ops import aero_cuda, aero_grouped_cuda
     st, obs = env.reset(11)
     h = policy.init_rnn_states(env.n)[0]
     masks = torch.ones((env.n, 1), device="cuda")
@@ -1271,8 +1363,9 @@ def planning_step_vs_plain(env, policy, warm: int = 5, phase: int = 18) -> None:
     gen = env.generator.get_state()
     got_st, got = env.step(st, a)
     env.generator.set_state(gen)
-    env.model.dynamics = functools.partial(aero_cuda.nlplant_distilled_plain,
-                                           env.model.weights)
+    plain = (aero_grouped_cuda.nlplant_grouped_plain if is_grouped(env.model.weights)
+             else aero_cuda.nlplant_distilled_plain)
+    env.model.dynamics = functools.partial(plain, env.model.weights)
     try:
         want_st, want = env.step(st, a)
     finally:
@@ -1291,7 +1384,9 @@ def planning_step_vs_plain(env, policy, warm: int = 5, phase: int = 18) -> None:
             errs[name] = compare_cols(f"planning step {name}", g, w, PLAN_LIMITS)
         except Mismatch as e:
             fail = fail or e
-    log(f"phase {phase} one planning step, kernel vs plain on the card, n={env.n}, "
+    log(f"phase {phase} one planning step on "
+        f"{'pallas' if is_grouped(env.model.weights) else 'distilled'}, kernel vs plain on the "
+        f"card, n={env.n}, "
         f"{env.low_level_steps} inner steps: |err|/rms median {STATS['median']:.2e} "
         f"share above {PLAN_LIMITS[1]} {STATS['share']:.2e} max {STATS['max']:.2e} "
         f"(limits {PLAN_LIMITS}); flag disagreement {['%.2e' % f for f in flags]} "
@@ -2742,30 +2837,70 @@ def phase_bench_combat_sweep(table, phase=34) -> None:
 
 
 def phase_bench_pallas(table, phase=34) -> None:
-    """(d): measure_combat_step for the 1v1 envs on aero_backend="pallas" at
-    BENCH_PALLAS_N aircraft: nlplant_grouped 11 times per step, at the
-    warm-up and once at the reset, nothing else; at the larger size one step
-    against the same step with the plain 43-net xdot (combat_step_vs_plain)."""
+    """(d): measure_combat_step for the four combat envs on
+    aero_backend="pallas" at BENCH_PALLAS_N aircraft: nlplant_grouped 11
+    (1v1) or 3 (team) times per step, at the warm-up and once at the reset,
+    nothing else; at the larger size one step against the same step with
+    the plain 43-net xdot (combat_step_vs_plain). measure_combat_step gives
+    aero_backend to the 1v1 envs only, as the JAX package's does; the team
+    envs take it from NEURALPLANE_AERO_BACKEND, set for the call as the JAX
+    package's team envs take theirs. Then one high-level step of
+    PlanningEnv("tracking", "pallas") at 1000 envs under results/tracking's
+    policy: nlplant_grouped 2 x low_level_steps times, nothing else; and one
+    more from a carried state against the plain 43-net xdot under
+    PLAN_LIMITS."""
+    import tempfile
+    from neuralplane_tpu_torch.algorithms.rl_config import RLConfig
     from neuralplane_tpu_torch.measure import measure_combat_step
+    from neuralplane_tpu_torch.runner import F16SimRunner
     total = 0
-    for name in ("SingleCombat", "SingleCombatShoot"):
+    for name, (_, _, per_step) in BENCH_COMBAT.items():
         for n in BENCH_PALLAS_N:
             zero_counts()
-            r = measure_combat_step(n, steps=BENCH_COMBAT_STEPS, env_name=name,
-                                    aero_backend="pallas")
+            os.environ["NEURALPLANE_AERO_BACKEND"] = "pallas"
+            try:
+                r = measure_combat_step(n, steps=BENCH_COMBAT_STEPS, env_name=name,
+                                        aero_backend="pallas")
+            finally:
+                del os.environ["NEURALPLANE_AERO_BACKEND"]
             counts = read_counts()
             env = r["env_obj"]
             row = {k: v for k, v in r.items() if k not in ("env_obj", "state", "out")}
             log(f"phase {phase}d {json.dumps(row)} aero_backend=pallas launches {counts}")
             check_counts(f"{name} pallas n={n}", counts,
-                         {"nlplant_grouped": 1 + 11 * (BENCH_COMBAT_STEPS + 1)})
+                         {"nlplant_grouped": 1 + per_step * (BENCH_COMBAT_STEPS + 1)})
             if not r["finite"] or not is_grouped(env.model.weights):
                 raise Mismatch(f"phase {phase}d: {name} on pallas: {row}")
             total += counts["nlplant_grouped"]
             if n == BENCH_PALLAS_N[-1]:
-                combat_step_vs_plain(env, f"{name}(pallas)", phase=phase)
+                combat_step_vs_plain(env, f"{name}(pallas)", phase=f"{phase}d")
             del r, env
     table["nlplant_grouped"]["launches_bench_combat_pallas"] = total
+
+    env = planning_env(1000, backend="pallas")
+    ckpt = os.path.join(REPO, "results", "tracking", "policy_checkpoint.pkl")
+    with tempfile.TemporaryDirectory() as run_dir:
+        runner = F16SimRunner(env, RLConfig(), run_dir=run_dir, model_dir=ckpt)
+        runner.close()
+    st, obs = env.reset(3)
+    h = runner.policy.init_rnn_states(env.n)[0]
+    with torch.no_grad():
+        a, _ = runner.policy.act(obs, h, torch.ones((env.n, 1), device="cuda"))
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    st, out = env.step(st, a)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    log(f"phase {phase}d one PlanningEnv(tracking, pallas) high-level step, n={env.n}: "
+        f"{wall * 1e3:.3f} ms, launches {counts}")
+    check_counts("planning pallas step", counts,
+                 {"nlplant_grouped": 2 * env.low_level_steps})
+    if not is_grouped(env.model.weights) or not bool(torch.isfinite(out.obs).all()):
+        raise Mismatch(f"phase {phase}d: the planning step on pallas")
+    table["nlplant_grouped"]["launches_planning_pallas"] = counts["nlplant_grouped"]
+    planning_step_vs_plain(env, runner.policy, phase=f"{phase}d")
 
 
 def main(argv=None) -> int:
@@ -2823,6 +2958,9 @@ def main(argv=None) -> int:
     del r
     phase_train(args.train_episodes, table)
     phase_fly(table)
+    t0 = time.perf_counter()
+    phase_fly_port_trained(table)
+    log(f"phase 35: {time.perf_counter() - t0:.1f} s wall")
     t0 = time.perf_counter()
     phase_planning_train(table)
     phase_planning_fly(table)

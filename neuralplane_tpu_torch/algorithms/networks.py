@@ -19,7 +19,8 @@ saves memory only and changes no value.
 Parameter names mirror the JAX param tree, so `params_from_jax` maps it
 leaf by leaf: Dense `w` [in, out] -> `weight` [out, in], `b` -> `bias`,
 LayerNorm `scale` / `bias` -> `weight` / `bias`, GRU `w_ih` / `w_hh` [D, 3H]
--> [3H, D] (torch's layout, as nn.GRUCell's).
+-> [3H, D] (torch's layout, as nn.GRUCell's). `params_to_jax` maps a
+network back, reading each leaf's name from its module's type.
 
 Init as `_mlp_init` / `_dense_init` / `_gru_init`: orthogonal weights with
 gain sqrt(2) (5/3 for tanh) in the MLPs, `gain` for the mean head, 1 for the
@@ -355,6 +356,46 @@ def params_from_jax(tree) -> Dict[str, torch.Tensor]:
 
     walk(tree, [])
     return out
+
+
+def params_to_jax(module: nn.Module) -> dict:
+    """The inverse of `params_from_jax` for one network: the module's
+    parameters as the JAX package's param tree, nested dicts (keys sorted,
+    as JAX pickles them) and lists (a ModuleList) of float32 numpy. The leaf
+    names come from the owning module's type, not from the port's name,
+    since `params_from_jax` maps both Dense `w` and LayerNorm `scale` to
+    `weight`: a Linear's `weight` / `bias` become `w` [in, out] / `b`, a
+    LayerNorm's become `scale` / `bias`, a GRU cell's `w_ih` / `w_hh` are
+    transposed back to [D, 3H]; any other parameter keeps its name."""
+    root: dict = {}
+    for name, p in module.named_parameters():
+        *owner_path, leaf = name.split(".")
+        owner = module.get_submodule(".".join(owner_path))
+        if isinstance(owner, nn.Linear):
+            leaf = {"weight": "w", "bias": "b"}[leaf]
+        elif isinstance(owner, nn.LayerNorm):
+            leaf = {"weight": "scale", "bias": "bias"}[leaf]
+        a = p.detach().to("cpu", torch.float32).numpy()
+        a = np.ascontiguousarray(a.T if leaf in _TRANSPOSED else a)
+        node = root
+        for i, key in enumerate(owner_path):
+            child = module.get_submodule(".".join(owner_path[:i + 1]))
+            empty = [None] * len(child) if isinstance(child, nn.ModuleList) else {}
+            if isinstance(node, list):
+                if node[int(key)] is None:
+                    node[int(key)] = empty
+                node = node[int(key)]
+            else:
+                node = node.setdefault(key, empty)
+        node[leaf] = a
+
+    def sort(node):
+        if isinstance(node, dict):
+            return {k: sort(node[k]) for k in sorted(node)}
+        if isinstance(node, list):
+            return [sort(v) for v in node]
+        return node
+    return sort(root)
 
 
 def first_mismatch(got: Dict[str, torch.Tensor], want: Dict[str, torch.Tensor]

@@ -6,6 +6,10 @@ state_dicts, the generator state, the update count), written atomically:
 tmp file + os.replace, as `save_pytree` (:17-28), so that a kill during a
 save never leaves a half-written `state_latest.pt`.
 
+`save_actor_pickle` writes the other way: an actor's param tree
+(`networks.params_to_jax`) as the JAX package's actor-only pickle, which
+its runner grafts onto fresh params.
+
 `load_jax_pickle` reads `neuralplane_tpu`'s checkpoints (`state_*.pkl`,
 `results/*/policy_checkpoint*.pkl`, actor-only pickles). A plain
 `pickle.load` of those would import the JAX package, flax and optax for
@@ -31,6 +35,19 @@ def save_checkpoint(path: str, blob: dict) -> None:
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = path + ".tmp"
     torch.save(blob, tmp)
+    os.replace(tmp, path)
+
+
+def save_actor_pickle(path: str, actor_tree: Any) -> None:
+    """An actor-only checkpoint in the JAX package's format: a pickle of the
+    actor's param tree of numpy arrays (`networks.params_to_jax`), which the
+    JAX runner grafts onto fresh params (neuralplane_tpu/runner/base.py:
+    86-108); atomic (tmp + rename), as `save_pytree`."""
+    path = os.path.abspath(path)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(actor_tree, f)
     os.replace(tmp, path)
 
 

@@ -6,7 +6,8 @@ in the distilled kernels, 32 in the 43-net ones); and the training loop on
 the card (collects launch env_step once per step, the policy on the card
 agrees with its CPU copy), and the combat and missile steps (the xdot
 kernel against its plain version, no host sync, a MAPPO collect with no
-host sync), and the throughput harness's 1v1 missile step on the 43 nets.
+host sync), and the throughput harness's combat steps and a planning step
+on the 43 nets.
 Every test here is marked
 `cuda` and skips without an NVIDIA GPU. The file imports no JAX, so that it
 runs where only PyTorch is installed:
@@ -364,11 +365,12 @@ def test_policy_on_card_matches_cpu(tmp_path):
             assert rel < 1e-4
 
 
-def planning_step_pair(n, inner=10, seed=3):
-    """One high-level step of PlanningEnv("tracking", "distilled") from a
-    carried state, with nlplant_distilled and with its plain version (same
-    generator state and actions): ((state, out) kernel, (state, out) plain,
-    kernel launches of the first)."""
+def planning_step_pair(n, inner=10, seed=3, backend="distilled"):
+    """One high-level step of PlanningEnv("tracking", backend) from a
+    carried state, with the backend's xdot kernel (nlplant_distilled, or
+    nlplant_grouped on "pallas") and with its plain version (same generator
+    state and actions): ((state, out) kernel, (state, out) plain, (xdot
+    kernel launches, env_step launches) of the first)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     import functools
@@ -377,24 +379,25 @@ def planning_step_pair(n, inner=10, seed=3):
     from neuralplane_tpu_torch.envs.planning import load_low_level_ckpt
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = PlanningEnv(num_envs=n, config=load_config("tracking", low_level_steps=inner),
-                      aero_backend="distilled", device="cuda", low_level_params=load_low_level_ckpt(
+                      aero_backend=backend, device="cuda", low_level_params=load_low_level_ckpt(
                           os.path.join(repo, "results", "control", "policy_checkpoint.pkl")))
+    kernel, plain = ((tgrp.nlplant_grouped, tgrp.nlplant_grouped_plain) if backend == "pallas"
+                     else (aero_cuda.nlplant_distilled, aero_cuda.nlplant_distilled_plain))
     rng = np.random.default_rng(seed)
     st, _ = env.reset(seed)
     st, _ = env.step(st, T(rng.uniform(-1, 1, (n, 3)).astype(np.float32)).cuda())
     a = T(rng.uniform(-1, 1, (n, 3)).astype(np.float32)).cuda()
     gen = env.generator.get_state()
-    aero_cuda.nlplant_distilled.launches = step_cuda.env_step.launches = 0
+    kernel.launches = step_cuda.env_step.launches = 0
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")   # the inner loop never waits for the card
     try:
         got = env.step(st, a)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    launches = (aero_cuda.nlplant_distilled.launches, step_cuda.env_step.launches)
+    launches = (kernel.launches, step_cuda.env_step.launches)
     env.generator.set_state(gen)
-    env.model.dynamics = functools.partial(aero_cuda.nlplant_distilled_plain,
-                                           env.model.weights)
+    env.model.dynamics = functools.partial(plain, env.model.weights)
     want = env.step(st, a)
     torch.cuda.synchronize()
     return got, want, launches
@@ -409,7 +412,19 @@ def test_planning_step_kernel_matches_plain_on_card(n):
     relative to its RMS: median within 1e-4, at most 5% of rows above 1e-3
     (10 chained steps; phase 18's 50 allow 25%), none above 1; flags on all
     but 1% of rows."""
-    (gs, g), (ws, w), launches = planning_step_pair(n)
+    check_planning_pair(n, "distilled")
+
+
+@pytest.mark.cuda
+def test_planning_step_on_the_43_nets():
+    """chip_smoke.py phase 34(d)'s planning step at a small size: the same
+    checks on aero_backend="pallas", where the inner loop launches
+    nlplant_grouped 20 times per high-level step."""
+    check_planning_pair(1000, "pallas")
+
+
+def check_planning_pair(n, backend):
+    (gs, g), (ws, w), launches = planning_step_pair(n, backend=backend)
     assert launches == (20, 0)
     assert g.obs.shape == (n, 22) and torch.isfinite(g.obs).all()
     assert int(gs.env.step_count.min()) >= 10 and gs.env.model.s.shape == (n, 12)
@@ -627,6 +642,54 @@ def test_world_one_nccl_mesh_is_the_run_without_one(tmp_path):
     for (k, a), b in zip(plain.policy.state_dict().items(), meshed.policy.state_dict().values()):
         assert torch.equal(a, b), k
     assert mesh.stats["all_reduce_calls"] > 0 and not dist.is_initialized()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["MultipleCombat", "MultipleCombatShoot"])
+def test_measured_team_step_on_the_43_nets(name):
+    """measure_combat_step on the team envs with aero_backend="pallas"
+    (chip_smoke.py phase 34(d) at a small size): nlplant_grouped launches 3
+    times per step (plus one at the reset), nlplant_distilled and env_step
+    never; one more step of random actions (on the missile env, the shoot
+    bit on half the rows) against the same step with the plain 43-net xdot,
+    as the combat test holds it."""
+    import functools
+    from neuralplane_tpu_torch.measure import measure_combat_step
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    kernels = (tgrp.nlplant_grouped, aero_cuda.nlplant_distilled, step_cuda.env_step)
+    for k in kernels:
+        k.launches = 0
+    # measure_combat_step gives aero_backend to the 1v1 envs only
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("NEURALPLANE_AERO_BACKEND", "pallas")
+        r = measure_combat_step(1000, steps=5, env_name=name)
+    assert [k.launches for k in kernels] == [1 + 3 * 6, 0, 0]
+    assert r["n"] == 1000 and r["finite"] and r["device"] == torch.cuda.get_device_name()
+    env, st = r["env_obj"], r["state"]
+    assert isinstance(env.model.weights, taero.GroupedAeroWeights)
+    rng = np.random.default_rng(4)
+    nvec = getattr(getattr(env, "action_space", None), "nvec", None)
+    if nvec is None:
+        a = rng.uniform(-1, 1, (env.n, 4))
+    else:
+        a = np.concatenate([rng.integers(0, nvec, (env.n, 4)), rng.random((env.n, 1)) < 0.5],
+                           axis=1)
+    a = T(a.astype(np.float32)).cuda()
+    gen = env.generator.get_state()
+    gs, g = env.step(st, a)
+    env.generator.set_state(gen)
+    env.model.dynamics = functools.partial(tgrp.nlplant_grouped_plain, env.model.weights)
+    ws, w = env.step(st, a)
+    torch.cuda.synchronize()
+    n = env.n
+    for got, want in ((g.obs, w.obs), (gs.model.s, ws.model.s), (g.reward, w.reward)):
+        scale = want.reshape(n, -1).pow(2).mean(0).sqrt().clamp_min(1e-6)
+        err = (got - want).reshape(n, -1).abs() / scale
+        assert err.median(0).values.max() < 1e-4 and err.max() < 1.0
+        assert (err > 1e-3).float().mean(0).max() <= 5e-2
+    for f in ("done", "bad_done", "exceed_time_limit"):
+        assert (getattr(g, f) != getattr(w, f)).float().mean() <= 1e-2
 
 
 @pytest.mark.cuda

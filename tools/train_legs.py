@@ -1,0 +1,203 @@
+"""One leg of a long training run of the port's train CLI, stopped at a
+success share or at a wall-clock budget, always on a checkpointed episode.
+
+  python tools/train_legs.py --out runs/heading_torch/leg_0 --budget-s 3300 \
+      --stop-success 0.99 -- --env-name Control --scenario-name heading \
+      --n-rollout-threads 3000 ... --log-interval 1 --num-env-steps 7.5e8
+
+  python tools/train_legs.py --out runs/heading_torch/leg_1 \
+      --resume runs/heading_torch/leg_0 --budget-s 3300 --stop-success 0.99 \
+      -- <the same flags>
+
+The child is `python -m neuralplane_tpu_torch.scripts.train <flags>
+--run-dir <out>/run`, started from the current directory (the repo root),
+in its own process group. It logs one `metrics.jsonl` line per episode
+(`--log-interval 1` is required) and then saves `state_ep<k>.pt` (the
+default `--save-interval 1`). For each line the tool waits for that
+episode's checkpoint, copies it to `<out>/state_latest.pt`, appends the
+line to `<out>/metrics.jsonl` and deletes the child's per-episode copies
+(a 7.5e8-step heading run would leave 250 of them). So `<out>` never holds
+a line whose checkpoint is missing, and the next leg resumes exactly
+after the last line.
+
+Stop rules, checked after each line: the line's success share
+`episodes_reached_target / (episodes_reached_target + episodes_failed)` is
+at least `--stop-success`, or `--budget-s` seconds have passed since the
+tool started. The child is then killed (its process group). Otherwise the
+leg ends when the child does, at its `--num-env-steps`.
+
+`--resume PREV` continues from a previous leg's `<PREV>/state_latest.pt`
+(`--model-dir`; policy, Adam, update count and generator) with the step
+budget reduced by the steps done, and shifts this leg's `step` and `wall_s`
+by the previous legs' totals, so the legs' `metrics.jsonl` files
+concatenate into one run. `<out>/leg.json` records the leg: episodes, the
+cumulative steps and wall seconds, and why it stopped.
+
+  python tools/train_legs.py --export-actor runs/heading_torch/leg_1/state_latest.pt \
+      --to results/heading_torch/policy_checkpoint.pkl -- <the same flags>
+
+writes the checkpoint's actor as the JAX package's actor-only pickle
+(`params_to_jax`, `save_actor_pickle`), the policy built from the flags'
+env and network sizes on the CPU. Imports no JAX.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import signal
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+from neuralplane_tpu_torch.scripts.supervise import _strip_arg  # noqa: E402
+
+
+def success_share(rec: dict) -> float:
+    reached, failed = rec["episodes_reached_target"], rec["episodes_failed"]
+    return reached / (reached + failed) if reached + failed else 0.0
+
+
+def copy_atomic(src: str, dst: str) -> None:
+    shutil.copyfile(src, dst + ".tmp")
+    os.replace(dst + ".tmp", dst)
+
+
+def run_leg(out: str, train_argv: list, budget_s: float, stop_success: float,
+            resume: str = None, poll_s: float = 1.0) -> dict:
+    if _strip_arg(train_argv, "--log-interval")[1] != "1":
+        raise SystemExit("train_legs: the train flags need --log-interval 1")
+    if _strip_arg(train_argv, "--save-interval")[1] not in (None, "1"):
+        raise SystemExit("train_legs: the train flags need --save-interval 1")
+    t_start = time.time()
+    argv, _ = _strip_arg(train_argv, "--run-dir")
+    argv, total = _strip_arg(argv, "--num-env-steps")
+    total = int(float(total))
+    done_steps, done_wall = 0, 0.0
+    if resume is not None:
+        with open(os.path.join(resume, "leg.json"), encoding="utf-8") as f:
+            prev = json.load(f)
+        done_steps, done_wall = prev["steps"], prev["wall_s"]
+        argv = _strip_arg(argv, "--model-dir")[0] + [
+            "--model-dir", os.path.join(resume, "state_latest.pt")]
+    if done_steps >= total:
+        raise SystemExit(f"train_legs: {done_steps} of {total} steps already done")
+    run_dir = os.path.join(out, "run")
+    os.makedirs(out, exist_ok=True)
+    if os.path.exists(os.path.join(out, "metrics.jsonl")):
+        raise SystemExit(f"train_legs: {out} already holds a leg")
+    cmd = [sys.executable, "-m", "neuralplane_tpu_torch.scripts.train", *argv,
+           "--run-dir", run_dir, "--num-env-steps", str(total - done_steps)]
+    print(f"[train_legs] {' '.join(cmd)}", flush=True)
+    child = subprocess.Popen(cmd, start_new_session=True)
+    child_metrics = os.path.join(run_dir, "metrics.jsonl")
+    ckpts = os.path.join(run_dir, "checkpoints")
+    taken, last, stopped = 0, None, None
+
+    def take_ready_lines() -> bool:
+        """Move every child line whose checkpoint exists to `out`; True if a
+        stop rule fired."""
+        nonlocal taken, last, stopped
+        try:
+            with open(child_metrics, encoding="utf-8") as f:
+                lines = [ln for ln in f.read().split("\n")[:-1] if ln.strip()]
+        except OSError:
+            return False
+        while taken < len(lines):
+            ep_ckpt = os.path.join(ckpts, f"state_ep{taken}.pt")
+            if not os.path.exists(ep_ckpt):
+                return False
+            rec = json.loads(lines[taken])
+            rec["step"] += done_steps
+            rec["wall_s"] = round(rec["wall_s"] + done_wall, 2)
+            copy_atomic(ep_ckpt, os.path.join(out, "state_latest.pt"))
+            with open(os.path.join(out, "metrics.jsonl"), "a", encoding="utf-8") as f:
+                f.write(json.dumps(rec) + "\n")
+            for name in os.listdir(ckpts):
+                if name.startswith("state_ep") and name.endswith(".pt"):
+                    k = int(name[len("state_ep"):-len(".pt")])
+                    if k <= taken:
+                        os.remove(os.path.join(ckpts, name))
+            taken, last = taken + 1, rec
+            share = success_share(rec)
+            print(f"[train_legs] episode {taken} step {rec['step']} success "
+                  f"{share:.4f} reward {rec['average_episode_rewards']:.3f} "
+                  f"wall {time.time() - t_start:.1f} s", flush=True)
+            if share >= stop_success:
+                stopped = f"success share {share:.4f} >= {stop_success}"
+            elif time.time() - t_start >= budget_s:
+                stopped = f"wall budget {budget_s:.0f} s"
+            if stopped:
+                return True
+        return False
+
+    try:
+        while True:
+            rc = child.poll()
+            if take_ready_lines():
+                os.killpg(child.pid, signal.SIGKILL)
+                child.wait()
+                rc = 0
+                break
+            if rc is not None:
+                take_ready_lines()
+                stopped = stopped or f"child exited {rc}"
+                break
+            time.sleep(poll_s)
+    finally:
+        if child.poll() is None:
+            os.killpg(child.pid, signal.SIGKILL)
+            child.wait()
+    leg = {"episodes": taken, "steps": last["step"] if last else done_steps,
+           "wall_s": last["wall_s"] if last else done_wall,
+           "leg_wall_s": round(time.time() - t_start, 2), "stopped": stopped,
+           "rc": rc, "resumed_from": resume, "argv": cmd[1:]}
+    if last is not None:
+        leg["last_success_share"] = success_share(last)
+    with open(os.path.join(out, "leg.json"), "w", encoding="utf-8") as f:
+        json.dump(leg, f, indent=1)
+    print(f"[train_legs] {json.dumps(leg)}", flush=True)
+    return leg
+
+
+def export_actor(state_path: str, to: str, train_argv: list) -> None:
+    """The actor of a port checkpoint as the JAX package's actor-only pickle."""
+    from neuralplane_tpu_torch.algorithms.networks import params_to_jax
+    from neuralplane_tpu_torch.algorithms.ppo import PPOPolicy
+    from neuralplane_tpu_torch.scripts.train import args_to_config, get_parser, make_env
+    from neuralplane_tpu_torch.utils.checkpoint import load_checkpoint, save_actor_pickle
+    args = get_parser().parse_args(train_argv)
+    args.device, args.n_rollout_threads = "cpu", 1
+    env = make_env(args)
+    policy = PPOPolicy(args_to_config(args), env.num_observation, env.num_actions,
+                       device="cpu")
+    policy.load_state_dict(load_checkpoint(state_path)["policy"])
+    save_actor_pickle(to, params_to_jax(policy.actor))
+    print(f"[train_legs] wrote {to} ({os.path.getsize(to)} bytes) from {state_path}")
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    split = argv.index("--") if "--" in argv else len(argv)
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", help="the leg's directory")
+    ap.add_argument("--resume", default=None, help="the previous leg's directory")
+    ap.add_argument("--budget-s", type=float, default=3300.0)
+    ap.add_argument("--stop-success", type=float, default=0.99)
+    ap.add_argument("--export-actor", default=None, metavar="STATE_PT")
+    ap.add_argument("--to", default=None, help="the pickle --export-actor writes")
+    args = ap.parse_args(argv[:split])
+    train_argv = argv[split + 1:]
+    if args.export_actor:
+        export_actor(args.export_actor, args.to, train_argv)
+        return 0
+    leg = run_leg(args.out, train_argv, args.budget_s, args.stop_success, args.resume)
+    return 0 if leg["rc"] == 0 and leg["episodes"] else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
