@@ -122,14 +122,22 @@ Phases, each reported on its own line:
  35. the port's own heading run (results/heading_torch, trained on the card
      from scratch and written as the JAX package's actor-only pickle)
      flown as in 16, against the JAX package's eval of the same pickle;
-     2500 env_step launches, the success share logged.
+     2500 env_step launches, the success share logged;
+ 36. the combat evaluation probes (scripts/pk_probe.py,
+     scripts/ladder_probe.py) in-process on the committed evadable-missile
+     checkpoints: (a) on "distilled", an xdot batch of the match against
+     nlplant_distilled's plain version, three match steps under the sync
+     debug mode, the idle share, the pk probe at 256 envs x 200 steps and
+     one both-sides ladder rung at 200 envs x 200 steps, 11 launches per
+     match step and 1 per reset; (b) the pk probe for 50 steps on "pallas",
+     11 nlplant_grouped launches per step, a batch against its plain version.
 
 The launch counters are set to 0 just before phases 6, 7, 12, 13, 14, 15,
 16, 35, 17, 18, each eval of 19, each timed run of 20 and 23, the runs of 21,
 24 and 25, the evals of 22 and 26, each render of 29, each run of 32,
-each rank's runs in 33 and each row of 34(b-d), and read just after; a
-kernel of the path that did not launch, or one that launched off its path
-in 17-26, 29 and 32-34, fails the run. Any
+each rank's runs in 33, each row of 34(b-d) and each probe run of 36, and
+read just after; a kernel of the path that did not launch, or one that
+launched off its path in 17-26, 29 and 32-36, fails the run. Any
 mismatch, non-finite value or failed check exits non-zero. The
 second-to-last line is the kernel table as JSON, the last line the device
 record.
@@ -2903,6 +2911,189 @@ def phase_bench_pallas(table, phase=34) -> None:
     planning_step_vs_plain(env, runner.policy, phase=f"{phase}d")
 
 
+# Phase 36: the combat evaluation probes (scripts/pk_probe.py,
+# scripts/ladder_probe.py) in-process, as a user runs them, on the committed
+# evadable-missile checkpoints (results/shoot_evadable/REPORT.md "Round-5"),
+# named as pool entries through a directory of links. Their protocols
+# (results/combat_eval_torch/REPORT.md) at the full width, cut in depth:
+# A1 (the 2e9 final against a random actor, stochastic, 256 envs x 3000
+# steps) to PROBE_PK steps, A3 (the final against the 1.3e9 start, both
+# orientations, 200 envs x 2000 steps, two seeds) to one seed of
+# PROBE_LADDER steps; A1 on "pallas" for PROBE_PALLAS steps.
+PROBE_LINKS = {"final": "shoot_evadable/policy_checkpoint_2e9.pkl",
+               "start13": "evadable_pfsp_ab/fsp_final_checkpoint.pkl"}
+PROBE_PK = (256, 200)
+PROBE_LADDER = (200, 200)
+PROBE_PALLAS = 50
+PK_PROBE_KEYS = {"ego_fired", "opp_fired", "ego_wins", "opp_wins", "pk_by_ego", "pk_by_opp",
+                 "pk_against_ego", "pk_against_opp", "episodes", "ego", "opponent",
+                 "scenario"}
+
+
+def probe_links(directory: str) -> str:
+    for name, path in PROBE_LINKS.items():
+        os.symlink(os.path.join(REPO, "results", path),
+                   os.path.join(directory, f"actor_{name}.pkl"))
+    return directory
+
+
+def run_probe_cli(main_fn, argv):
+    """A probe's main in-process on the card: (its last stdout line as
+    JSON, wall seconds)."""
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        main_fn(argv)
+    torch.cuda.synchronize()
+    return json.loads(buf.getvalue().strip().splitlines()[-1]), time.perf_counter() - t0
+
+
+def probe_match(links: str, num_envs: int):
+    """The A1 match as pk_probe.main builds it: env, policy, the 2e9 actor
+    and the seeded random one."""
+    from neuralplane_tpu_torch.envs import SingleCombatShootEnv
+    from neuralplane_tpu_torch.scripts import ladder_probe, pk_probe
+    args = pk_probe.get_parser().parse_args(["--ckpt-dir", links, "--use-prior",
+                                             "--device", "cuda"])
+    env = combat_env(SingleCombatShootEnv, num_envs, args.scenario)
+    policy = ladder_probe.make_policy(args, env)
+    ego = ladder_probe.load_actor(policy, links, "final")
+    opp = policy.init_actor_params(torch.Generator().manual_seed(99)).to("cuda")
+    return env, policy, ego, opp
+
+
+def captured_xdot(module, name: str, links: str, num_envs: int, steps: int = 2):
+    """The last xdot batch (weights, state, control) that `module.name`
+    (the kernel wrapper the dispatch calls) received in a `steps`-step A1
+    match; the match runs uncounted, before the counters are set to 0."""
+    from neuralplane_tpu_torch.scripts import ladder_probe
+    kernel, seen = getattr(module, name), []
+
+    def record(w, s, u, **kw):
+        seen.append((w, s.clone(), u.clone()))
+        return kernel(w, s, u, **kw)
+    # the wrapper counts its launches on the name the module holds
+    record.launches = 0
+    setattr(module, name, record)
+    try:
+        env, policy, ego, opp = probe_match(links, num_envs)
+        ladder_probe.play_match(env, policy, ego, opp, steps, 0, True)
+    finally:
+        setattr(module, name, kernel)
+    return seen[-1], env
+
+
+def phase_probes(table, pk=PROBE_PK, ladder=PROBE_LADDER, pallas_steps=PROBE_PALLAS,
+                 phase=36) -> None:
+    """(a) On "distilled": an xdot batch of the A1 match through
+    nlplant_distilled and its plain version at phase 3's limits; three match
+    steps under CUDA's sync debug mode 'error'; a profile of five match
+    steps (idle share); pk_probe.main at A1's width for pk[1] steps and
+    ladder_probe.main at A3's for one both-sides pair of ladder[1] steps,
+    counters set to 0 before each and read after: nlplant_distilled 11 per
+    match step and 1 per reset, nothing else; the JAX tools' keys, finite
+    values, tallies in range. (b) A1 on "pallas" for `pallas_steps` steps:
+    nlplant_grouped 11 per step and 1 per reset, nothing else, and a batch
+    of that match against nlplant_grouped's plain version."""
+    import tempfile
+    from neuralplane_tpu_torch.ops import aero_cuda, aero_grouped_cuda as grp
+    from neuralplane_tpu_torch.scripts import ladder_probe, pk_probe
+    with tempfile.TemporaryDirectory() as d:
+        links = probe_links(d)
+        (w, s, u), _ = captured_xdot(aero_cuda, "nlplant_distilled", links, pk[0])
+        STATS.clear()
+        err = compare_cols(f"phase {phase} nlplant_distilled on an A1 match batch",
+                           aero_cuda.nlplant_distilled(w, s, u),
+                           aero_cuda.nlplant_distilled_plain(w, s, u))
+        log(f"phase {phase} nlplant_distilled on an xdot batch of the A1 match (n={s.shape[0]}) "
+            f"against plain: max_abs_err {err:.3e}, |err|/rms median {STATS['median']:.2e} "
+            f"flip share {STATS['share']:.2e} max {STATS['max']:.2e} OK")
+
+        env, policy, ego, opp = probe_match(links, pk[0])
+        carry = ladder_probe.match_init(env, policy, 0)
+        carry = ladder_probe.match_steps(env, ego, opp, carry, 1, True)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ladder_probe.match_steps(env, ego, opp, carry, 3, True)
+        except RuntimeError as e:
+            raise Mismatch(f"phase {phase}: the match loop synchronizes the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ladder_probe.match_steps(env, ego, opp, carry, 20, True)
+        torch.cuda.synchronize()
+        loop_ms = (time.perf_counter() - t0) * 1e3 / 20
+        busy, wall_us, launches, top = profile_calls(
+            lambda: ladder_probe.match_steps(env, ego, opp, carry, 1, True), 5)
+        idle = f"idle share {1 - busy / wall_us:.3f}" if busy else "idle share not measured"
+        log(f"phase {phase} A1 match loop, n={env.n}: 3 steps under sync debug mode 'error': "
+            f"no host sync OK; {loop_ms:.3f} ms per match step over 20; profile: device busy "
+            f"{busy:.1f} us of {wall_us:.1f} us wall, {idle}, {launches:g} device launches "
+            f"per step; {top}")
+        del env, carry
+
+        base = ["--ckpt-dir", links, "--use-prior", "--stochastic", "both", "--device", "cuda"]
+        zero_counts()
+        tot, wall = run_probe_cli(pk_probe.main, base + [
+            "--ego", "final", "--opponent", "random", "--num-envs", str(pk[0]),
+            "--steps", str(pk[1])])
+        counts = read_counts()
+        log(f"phase {phase} pk_probe A1 ({pk[0]} envs, {pk[1]} of 3000 steps): {json.dumps(tot)}; "
+            f"{wall:.2f} s wall with the env and actors built, {wall * 1e3 / pk[1]:.2f} ms "
+            f"per match step; launches {counts}")
+        check_counts("pk_probe A1", counts, {"nlplant_distilled": 11 * pk[1] + 1})
+        nums = [v for k, v in tot.items() if k not in ("ego", "opponent", "scenario")]
+        if set(tot) != PK_PROBE_KEYS or not all(math.isfinite(v) and v >= 0 for v in nums) \
+                or not 0 <= tot["pk_against_opp"] <= 1 or not 0 <= tot["pk_against_ego"] <= 1 \
+                or tot["ego_fired"] + tot["opp_fired"] == 0:
+            raise Mismatch(f"phase {phase}: pk_probe's line {tot}")
+        table["nlplant_distilled"]["launches_pk_probe"] = counts["nlplant_distilled"]
+
+        zero_counts()
+        out, wall = run_probe_cli(ladder_probe.main, base + [
+            "--final", "final", "--opponents", "start13", "--env", "SingleCombatShoot",
+            "--scenario", "selfplay_shoot_evadable", "--num-envs", str(ladder[0]),
+            "--steps", str(ladder[1]), "--both-sides"])
+        counts = read_counts()
+        row, = out["ladder"]
+        log(f"phase {phase} ladder_probe A3 both sides ({ladder[0]} envs, {ladder[1]} of 2000 "
+            f"steps per orientation, seed 0): {json.dumps(row)}; {wall:.2f} s wall, "
+            f"{wall * 1e3 / (2 * ladder[1]):.2f} ms per match step; launches {counts}")
+        check_counts("ladder_probe A3", counts, {"nlplant_distilled": 2 * (11 * ladder[1] + 1)})
+        if list(row) != ["opponent", "ego_avg", "opp_avg", "diff", "episodes", "ego_wins",
+                         "opp_wins", "verdict"] or row["episodes"] < 1 \
+                or not all(math.isfinite(row[k]) for k in ("ego_avg", "opp_avg", "diff")):
+            raise Mismatch(f"phase {phase}: ladder_probe's row {row}")
+        table["nlplant_distilled"]["launches_ladder_probe"] = counts["nlplant_distilled"]
+
+        os.environ["NEURALPLANE_AERO_BACKEND"] = "pallas"
+        try:
+            (gw, s, u), env = captured_xdot(grp, "nlplant_grouped", links, pk[0])
+            if not is_grouped(env.model.weights):
+                raise Mismatch(f"phase {phase}b: the match did not fly the 43 nets")
+            err = compare_cols(f"phase {phase}b nlplant_grouped on an A1 match batch",
+                               grp.nlplant_grouped(gw, s, u), grp.nlplant_grouped_plain(gw, s, u))
+            zero_counts()
+            tot, wall = run_probe_cli(pk_probe.main, base + [
+                "--ego", "final", "--opponent", "random", "--num-envs", str(pk[0]),
+                "--steps", str(pallas_steps)])
+            counts = read_counts()
+        finally:
+            del os.environ["NEURALPLANE_AERO_BACKEND"]
+        log(f"phase {phase}b pk_probe A1 on pallas ({pk[0]} envs, {pallas_steps} steps): "
+            f"{json.dumps(tot)}; {wall * 1e3 / pallas_steps:.2f} ms per match step; launches "
+            f"{counts}; an xdot batch of the match against nlplant_grouped_plain: max_abs_err "
+            f"{err:.3e} OK")
+        check_counts("pk_probe A1 on pallas", counts,
+                     {"nlplant_grouped": 11 * pallas_steps + 1})
+        if set(tot) != PK_PROBE_KEYS:
+            raise Mismatch(f"phase {phase}b: pk_probe's line {tot}")
+        table["nlplant_grouped"]["launches_pk_probe_pallas"] = counts["nlplant_grouped"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=10 ** 6, help="aircraft per batch")
@@ -2996,6 +3187,9 @@ def main(argv=None) -> int:
     phase_bench_combat_sweep(table)
     phase_bench_pallas(table)
     log(f"phase 34: {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    phase_probes(table)
+    log(f"phase 36: {time.perf_counter() - t0:.1f} s wall")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall in all")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

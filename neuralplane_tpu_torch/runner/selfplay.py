@@ -422,6 +422,9 @@ class SelfplayRunner(Runner):
                 self.save("latest")
                 # monotone pool names: a resumed run numbers on after its pool
                 self._save_pool_entry(self._next_pool_name())
+                # the episode's own copy, after its pool entry: a tool that
+                # waits for it (tools/train_legs.py) finds the pool complete
+                self.save(f"ep{episode}")
                 # re-draw the training opponents from the grown pool
                 self.reset_opponent()
         return train_infos

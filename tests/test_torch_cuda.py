@@ -728,3 +728,23 @@ def test_measured_shoot_step_on_the_43_nets():
     for got, want in ((gs.ammo, ws.ammo), (gs.cooldown, ws.cooldown),
                       (gs.missiles.active, ws.missiles.active), (g.done, w.done)):
         assert (got != want).reshape(n, -1).any(1).float().mean() <= 1e-2
+
+
+@pytest.mark.cuda
+def test_combat_probes_on_card():
+    """chip_smoke.py phase 36 at a small size: the pk and ladder probes'
+    CLIs in-process on the committed evadable checkpoints, nlplant_distilled
+    11 times per match step and once per reset (nlplant_grouped on
+    "pallas"), nothing else, no host sync in the match loop, an xdot batch
+    of the match against each kernel's plain version."""
+    import os
+    import sys
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+    table = {"nlplant_distilled": {}, "nlplant_grouped": {}}
+    chip_smoke.phase_probes(table, pk=(64, 40), ladder=(64, 150), pallas_steps=10)
+    assert table == {"nlplant_distilled": {"launches_pk_probe": 11 * 40 + 1,
+                                           "launches_ladder_probe": 2 * (11 * 150 + 1)},
+                     "nlplant_grouped": {"launches_pk_probe_pallas": 11 * 10 + 1}}

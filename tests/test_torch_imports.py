@@ -48,8 +48,9 @@ print(" ".join(names))
 
 # modules added with the other airframes, the planning env, the gym
 # adapters, the classical controllers, the combat envs, self-play, the
-# action heads, the missiles, MAPPO, the tooling, data parallelism and the
-# throughput harness: each must be among those imported above
+# action heads, the missiles, MAPPO, the tooling, data parallelism, the
+# throughput harness and the combat evaluation probes: each must be among
+# those imported above
 NEW_MODULES = ("ops.linear_aero", "models.uav", "models.c172p", "envs.planning",
                "envs.wrappers", "runner.gym_adapter", "algorithms.pid",
                "algorithms.pid.config", "algorithms.pid.pid", "algorithms.pid.attitude",
@@ -62,7 +63,8 @@ NEW_MODULES = ("ops.linear_aero", "models.uav", "models.c172p", "envs.planning",
                "render.acmi", "render.trajectory", "utils.export", "utils.profiling",
                "scripts.distill_aero", "scripts.train_surrogates", "scripts.render",
                "scripts.export", "scripts.supervise", "parallel", "parallel.distributed",
-               "parallel.mesh", "measure", "scripts.bench")
+               "parallel.mesh", "measure", "scripts.bench", "scripts.ladder_probe",
+               "scripts.pk_probe")
 
 
 def test_port_imports_no_jax():

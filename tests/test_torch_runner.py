@@ -336,7 +336,7 @@ def test_cli_trains_the_missile_and_mappo_branches(tmp_path, branch):
     assert ("shoot_launches" in recs[0]) == branch.endswith("Shoot")
     ckpt = tmp_path / "run" / "checkpoints"
     assert sorted(os.listdir(ckpt)) == ["actor_0.pt", "actor_1.pt", "actor_2.pt",
-                                        "state_latest.pt"]
+                                        "state_ep0.pt", "state_ep1.pt", "state_latest.pt"]
     blob = load_checkpoint(str(ckpt / "state_latest.pt"))
     critic_in = blob["policy"]["critic.trunk.base.layers.0.dense.weight"].shape[1]
     obs_dim = blob["policy"]["actor.trunk.base.layers.0.dense.weight"].shape[1]
@@ -371,14 +371,14 @@ def test_cli_trains_selfplay_on_cpu(tmp_path):
     assert np.isfinite(recs[1]["policy_loss"]) and recs[2]["eval_episodes_ended"] >= 2
     ckpt = tmp_path / "run" / "checkpoints"
     assert sorted(os.listdir(ckpt)) == ["actor_0.pt", "actor_1.pt", "actor_2.pt",
-                                        "state_latest.pt"]
+                                        "state_ep0.pt", "state_ep1.pt", "state_latest.pt"]
     blob = load_checkpoint(str(ckpt / "state_latest.pt"))
     # the checkpoint is saved before the episode's pool entry, as in JAX
     assert sorted(blob["selfplay"]["policy_pool"]) == ["0", "1"]
     train_cli.main(args + ["--run-dir", str(tmp_path / "run2"),
                            "--model-dir", str(ckpt / "state_latest.pt")])
-    assert sorted(os.listdir(tmp_path / "run2" / "checkpoints"))[-2:] == \
-        ["actor_4.pt", "state_latest.pt"]
+    assert sorted(os.listdir(tmp_path / "run2" / "checkpoints"))[-4:] == \
+        ["actor_4.pt", "state_ep0.pt", "state_ep1.pt", "state_latest.pt"]
 
 
 def test_cli_team_selfplay_needs_mappo(tmp_path):

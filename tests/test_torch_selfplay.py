@@ -12,6 +12,7 @@ Runner's checkpoint hooks) against the JAX package's on the CPU.
   Stochastic mode samples; event scoring runs on the real team env.
 - The pool and the ELO across a resume, a JAX run's actor_*.pkl pool
   imported, and results/selfplay/policy_checkpoint.pkl restored.
+- tools/train_legs.py over two legs of a self-play run with ELO evals.
 """
 import os
 import pickle
@@ -114,7 +115,8 @@ def test_collect_train_and_run(tmp_path):
     assert np.isfinite(infos["average_episode_rewards"]) and infos["latest_elo"] == 1000.0
     assert sorted(runner.policy_pool) == ["0", "1", "2"]
     saved = sorted(os.listdir(tmp_path / "a" / "checkpoints"))
-    assert saved == ["actor_0.pt", "actor_1.pt", "actor_2.pt", "state_latest.pt"]
+    assert saved == ["actor_0.pt", "actor_1.pt", "actor_2.pt", "state_ep0.pt",
+                     "state_ep1.pt", "state_latest.pt"]
     newest = load_checkpoint(str(tmp_path / "a" / "checkpoints" / "actor_2.pt"))
     for k, v in runner.policy.actor.state_dict().items():
         torch.testing.assert_close(newest[k], v)
@@ -276,3 +278,44 @@ def test_restores_the_committed_selfplay_policy(tmp_path):
     assert list(runner.policy_pool) == ["0"] and runner.latest_elo == 1000.0
     for k, v in runner.policy.actor.state_dict().items():
         torch.testing.assert_close(runner.opponents[0].state_dict()[k], v)
+
+
+def test_train_legs_carries_the_pool_and_eval_lines(tmp_path):
+    """tools/train_legs.py on a self-play run with ELO evals: a leg stopped
+    by its budget keeps each episode's eval line with it and copies the
+    pool; the next leg imports that pool (its entries numbered on after
+    it) and the legs' lines concatenate into one run."""
+    import json
+    import subprocess
+    import sys
+    src = os.path.join(REPO, "neuralplane_tpu", "configs", "selfplay.yaml")
+    with open(src, encoding="utf-8") as f:
+        text = f.read().replace("max_steps: 2000", "max_steps: 4")
+    assert "max_steps: 4" in text
+    (tmp_path / "sp.yaml").write_text(text)
+    flags = ["--", "--env-name", "SingleCombat", "--scenario-name", str(tmp_path / "sp.yaml"),
+             "--use-selfplay", "--selfplay-algorithm", "fsp", "--elo-tie-band", "1.0",
+             "--use-eval", "--eval-interval", "2", "--n-rollout-threads", "2",
+             "--buffer-size", "4", "--data-chunk-length", "4", "--num-env-steps", "40",
+             "--ppo-epoch", "1", "--hidden-size", "16", "--act-hidden-size", "8",
+             "--recurrent-hidden-size", "8", "--log-interval", "1", "--device", "cpu",
+             "--aero-backend", "stacked"]
+    tool = [sys.executable, os.path.join(REPO, "tools", "train_legs.py")]
+    leg0, leg1 = tmp_path / "leg_0", tmp_path / "leg_1"
+    for extra in (["--out", str(leg0), "--budget-s", "0"],
+                  ["--out", str(leg1), "--resume", str(leg0), "--budget-s", "600"]):
+        subprocess.run(tool + extra + flags, cwd=REPO, check=True, capture_output=True,
+                       timeout=600)
+    legs = [json.loads((d / "leg.json").read_text()) for d in (leg0, leg1)]
+    assert [leg["episodes"] for leg in legs] == [1, 4] and legs[1]["steps"] == 40
+    assert sorted(os.listdir(leg0)) == ["actor_0.pt", "actor_1.pt", "leg.json",
+                                        "metrics.jsonl", "run", "state_latest.pt"]
+    assert {f"actor_{k}.pt" for k in range(6)} <= set(os.listdir(leg1))
+    recs = [json.loads(line) for d in (leg0, leg1)
+            for line in (d / "metrics.jsonl").read_text().splitlines()]
+    # the resumed leg's eval episode is its own third (global step 32)
+    assert [(r["step"], "latest_elo" in r and "eval_episodes_ended" in r) for r in recs] == [
+        (8, False), (16, False), (24, False), (32, False), (32, True), (40, False)]
+    assert "average_episode_rewards" not in recs[4]
+    state = torch.load(leg1 / "state_latest.pt", weights_only=True)
+    assert sorted(state["selfplay"]["policy_pool"]) == [str(k) for k in range(6)]

@@ -12,19 +12,25 @@ success share or at a wall-clock budget, always on a checkpointed episode.
 The child is `python -m neuralplane_tpu_torch.scripts.train <flags>
 --run-dir <out>/run`, started from the current directory (the repo root),
 in its own process group. It logs one `metrics.jsonl` line per episode
-(`--log-interval 1` is required) and then saves `state_ep<k>.pt` (the
-default `--save-interval 1`). For each line the tool waits for that
-episode's checkpoint, copies it to `<out>/state_latest.pt`, appends the
-line to `<out>/metrics.jsonl` and deletes the child's per-episode copies
-(a 7.5e8-step heading run would leave 250 of them). So `<out>` never holds
-a line whose checkpoint is missing, and the next leg resumes exactly
-after the last line.
+(`--log-interval 1` is required), an eval line after it on an eval
+episode, and then saves `state_ep<k>.pt` (the default `--save-interval
+1`). For each episode the tool waits for its checkpoint, copies it to
+`<out>/state_latest.pt`, appends the episode's lines to
+`<out>/metrics.jsonl` and deletes the child's per-episode copies (a
+7.5e8-step heading run would leave 250 of them). So `<out>` never holds a
+line whose checkpoint is missing, and the next leg resumes exactly after
+the last line. A self-play run's pool entries (`actor_<n>.pt`, written
+before the episode's checkpoint) are copied to `<out>` as well: the next
+leg's runner imports its pool from the directory of `--model-dir`.
 
-Stop rules, checked after each line: the line's success share
+Stop rules, checked after each episode: its success share
 `episodes_reached_target / (episodes_reached_target + episodes_failed)` is
 at least `--stop-success`, or `--budget-s` seconds have passed since the
-tool started. The child is then killed (its process group). Otherwise the
-leg ends when the child does, at its `--num-env-steps`.
+tool started (the combat envs log no success counts: only the budget
+stops them). The child is then killed (its process group). Otherwise the
+leg ends when the child does, at its `--num-env-steps`. A resumed leg
+numbers its episodes from 0 again, so its eval episodes (every
+`--eval-interval`) count from the leg's start.
 
 `--resume PREV` continues from a previous leg's `<PREV>/state_latest.pt`
 (`--model-dir`; policy, Adam, update count and generator) with the step
@@ -58,8 +64,16 @@ from neuralplane_tpu_torch.scripts.supervise import _strip_arg  # noqa: E402
 
 
 def success_share(rec: dict) -> float:
-    reached, failed = rec["episodes_reached_target"], rec["episodes_failed"]
+    """The heading task's share of episodes that reached the target; 0 for
+    a record without those counts (the combat envs log none)."""
+    reached, failed = rec.get("episodes_reached_target", 0), rec.get("episodes_failed", 0)
     return reached / (reached + failed) if reached + failed else 0.0
+
+
+def is_episode_line(rec: dict) -> bool:
+    """A training episode's record; an eval record (ELO, eval rewards)
+    follows its episode's, before that episode's checkpoint."""
+    return "average_episode_rewards" in rec
 
 
 def copy_atomic(src: str, dst: str) -> None:
@@ -96,37 +110,41 @@ def run_leg(out: str, train_argv: list, budget_s: float, stop_success: float,
     child = subprocess.Popen(cmd, start_new_session=True)
     child_metrics = os.path.join(run_dir, "metrics.jsonl")
     ckpts = os.path.join(run_dir, "checkpoints")
-    taken, last, stopped = 0, None, None
+    taken, last, stopped, pos = 0, None, None, 0
 
     def take_ready_lines() -> bool:
-        """Move every child line whose checkpoint exists to `out`; True if a
-        stop rule fired."""
-        nonlocal taken, last, stopped
-        try:
+        """Move the lines of every episode whose checkpoint exists to `out`
+        (with the pool entries saved so far); True if a stop rule fired."""
+        nonlocal taken, last, stopped, pos
+        while os.path.exists(os.path.join(ckpts, f"state_ep{taken}.pt")):
+            # the episode's checkpoint follows all of its lines
             with open(child_metrics, encoding="utf-8") as f:
-                lines = [ln for ln in f.read().split("\n")[:-1] if ln.strip()]
-        except OSError:
-            return False
-        while taken < len(lines):
+                lines = [json.loads(ln) for ln in f.read().split("\n")[:-1] if ln.strip()]
+            end = pos + 1
+            while end < len(lines) and not is_episode_line(lines[end]):
+                end += 1
             ep_ckpt = os.path.join(ckpts, f"state_ep{taken}.pt")
-            if not os.path.exists(ep_ckpt):
-                return False
-            rec = json.loads(lines[taken])
-            rec["step"] += done_steps
-            rec["wall_s"] = round(rec["wall_s"] + done_wall, 2)
             copy_atomic(ep_ckpt, os.path.join(out, "state_latest.pt"))
+            for name in sorted(os.listdir(ckpts)):
+                if name.startswith("actor_") and not os.path.exists(os.path.join(out, name)):
+                    copy_atomic(os.path.join(ckpts, name), os.path.join(out, name))
             with open(os.path.join(out, "metrics.jsonl"), "a", encoding="utf-8") as f:
-                f.write(json.dumps(rec) + "\n")
+                for rec in lines[pos:end]:
+                    rec["step"] += done_steps
+                    rec["wall_s"] = round(rec["wall_s"] + done_wall, 2)
+                    f.write(json.dumps(rec) + "\n")
             for name in os.listdir(ckpts):
                 if name.startswith("state_ep") and name.endswith(".pt"):
                     k = int(name[len("state_ep"):-len(".pt")])
                     if k <= taken:
                         os.remove(os.path.join(ckpts, name))
-            taken, last = taken + 1, rec
+            rec, elo = lines[pos], lines[end - 1].get("latest_elo")
+            taken, last, pos = taken + 1, lines[end - 1], end
             share = success_share(rec)
             print(f"[train_legs] episode {taken} step {rec['step']} success "
-                  f"{share:.4f} reward {rec['average_episode_rewards']:.3f} "
-                  f"wall {time.time() - t_start:.1f} s", flush=True)
+                  f"{share:.4f} reward {rec['average_episode_rewards']:.3f}"
+                  + (f" elo {elo:.2f}" if elo is not None else "")
+                  + f" wall {time.time() - t_start:.1f} s", flush=True)
             if share >= stop_success:
                 stopped = f"success share {share:.4f} >= {stop_success}"
             elif time.time() - t_start >= budget_s:
