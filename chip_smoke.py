@@ -130,14 +130,19 @@ Phases, each reported on its own line:
      debug mode, the idle share, the pk probe at 256 envs x 200 steps and
      one both-sides ladder rung at 200 envs x 200 steps, 11 launches per
      match step and 1 per reset; (b) the pk probe for 50 steps on "pallas",
-     11 nlplant_grouped launches per step, a batch against its plain version.
+     11 nlplant_grouped launches per step, a batch against its plain version;
+ 37. the port's own tracking run (results/tracking_torch, trained on the
+     card over the committed control policy and written as the JAX
+     package's actor-only pickle) flown as in 18, against the JAX package's
+     eval of the same pickle: 5000 nlplant_distilled launches, the success
+     share logged.
 
 The launch counters are set to 0 just before phases 6, 7, 12, 13, 14, 15,
-16, 35, 17, 18, each eval of 19, each timed run of 20 and 23, the runs of 21,
+16, 35, 17, 18, 37, each eval of 19, each timed run of 20 and 23, the runs of 21,
 24 and 25, the evals of 22 and 26, each render of 29, each run of 32,
 each rank's runs in 33, each row of 34(b-d) and each probe run of 36, and
 read just after; a kernel of the path that did not launch, or one that
-launched off its path in 17-26, 29 and 32-36, fails the run. Any
+launched off its path in 17-26, 29 and 32-37, fails the run. Any
 mismatch, non-finite value or failed check exits non-zero. The
 second-to-last line is the kernel table as JSON, the last line the device
 record.
@@ -1405,21 +1410,23 @@ def planning_step_vs_plain(env, policy, warm: int = 5, phase: int = 18) -> None:
         raise Mismatch(f"planning step: flags differ on {max(flags):.2e} of rows")
 
 
-def phase_planning_fly(table, n=1000, steps=50, phase=18):
-    """The JAX package's tracking policy (results/tracking, a Planning-env
-    policy) flown by the port over results/control's actor:
-    F16SimRunner.eval on PlanningEnv("tracking", "distilled") at n envs for
-    `steps` high-level steps (one 2500-step episode); its average episode
-    reward within TRACKING_REL_LIMIT of JAX_TRACKING_EVAL. Then one
-    high-level step, kernel against plain."""
+def fly_planning_policy(ckpt: str, want: float, limit: float, what: str, n: int,
+                        steps: int, phase: int):
+    """A Planning-env policy (a JAX actor or TrainState pickle) flown by the
+    port over results/control's actor: F16SimRunner.eval on
+    PlanningEnv("tracking", "distilled") at n envs for `steps` high-level
+    steps, the counters set to 0 just before; its average episode reward
+    within `limit` (relative) of `want`, nlplant_distilled launched exactly
+    2 x inner x steps times and nothing else, the success share reached /
+    (reached + failed) logged. Returns (env, runner, launch counts)."""
     import tempfile
     from neuralplane_tpu_torch.algorithms.rl_config import RLConfig
     from neuralplane_tpu_torch.runner import F16SimRunner
     env = planning_env(n)
-    ckpt = os.path.join(REPO, "results", "tracking", "policy_checkpoint.pkl")
     with tempfile.TemporaryDirectory() as run_dir:
         runner = F16SimRunner(env, RLConfig(), run_dir=run_dir, model_dir=ckpt)
         runner.close()
+    runner.eval_env = counting = CountingEnv(env)
     zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1427,18 +1434,61 @@ def phase_planning_fly(table, n=1000, steps=50, phase=18):
     wall = time.perf_counter() - t0
     counts = read_counts()
     inner = env.low_level_steps
-    log(f"phase {phase} JAX-trained tracking policy flown by the port (PlanningEnv, "
-        f"distilled, low level results/control): eval_average_episode_rewards {value:.4f} "
-        f"(the JAX package on the CPU: {JAX_TRACKING_EVAL}, limit {TRACKING_REL_LIMIT}); "
-        f"n={n}, {steps} high-level steps ({steps * inner} FDM steps) in {wall:.3f} s "
-        f"({wall * 1e3 / steps:.4f} ms per high-level step); launches {counts}")
+    reached, failed = int(counting.reached), int(counting.failed)
+    rel = abs(value - want) / abs(want)
+    log(f"phase {phase} {what} flown by the port (PlanningEnv, distilled, low level "
+        f"results/control): eval_average_episode_rewards {value:.4f} (the JAX package on the "
+        f"CPU: {want:.4f}, relative difference {rel:.4f}, limit {limit}); targets reached "
+        f"{reached}, episodes failed {failed}, success share "
+        f"{reached / max(1, reached + failed):.4f}; n={n}, {steps} high-level steps "
+        f"({steps * inner} FDM steps) in {wall:.3f} s ({wall * 1e3 / steps:.4f} ms per "
+        f"high-level step); launches {counts}")
     check_counts("planning eval", counts, {"nlplant_distilled": 2 * inner * steps})
-    rel = abs(value - JAX_TRACKING_EVAL) / abs(JAX_TRACKING_EVAL)
-    if not math.isfinite(value) or rel > TRACKING_REL_LIMIT:
-        raise Mismatch(f"phase {phase}: the port's tracking eval is {rel:.4f} away from the "
-                       f"JAX package's (limit {TRACKING_REL_LIMIT})")
+    if not math.isfinite(value) or rel > limit:
+        raise Mismatch(f"phase {phase}: the port's eval of {what} is {rel:.4f} away from the "
+                       f"JAX package's (limit {limit})")
+    return env, runner, counts
+
+
+def phase_planning_fly(table, n=1000, steps=50, phase=18):
+    """The JAX package's tracking policy (results/tracking, a Planning-env
+    policy) flown by the port (`fly_planning_policy`), one 2500-step
+    episode, within TRACKING_REL_LIMIT of JAX_TRACKING_EVAL. Then one
+    high-level step, kernel against plain."""
+    env, runner, counts = fly_planning_policy(
+        os.path.join(REPO, "results", "tracking", "policy_checkpoint.pkl"), JAX_TRACKING_EVAL,
+        TRACKING_REL_LIMIT, "JAX-trained tracking policy", n, steps, phase)
     table["nlplant_distilled"]["launches_planning"] = counts["nlplant_distilled"]
     planning_step_vs_plain(env, runner.policy, phase=phase)
+
+
+# Phase 37: the port's own tracking run (results/tracking_torch, trained on
+# the card over results/control), against the JAX package's
+# F16SimRunner.eval of the same actor-only pickle on the CPU, as phase 18:
+# `python tools/heading_eval.py --package jax --env-name Planning
+# --scenario tracking --checkpoint results/tracking_torch/policy_checkpoint.pkl
+# --low-level-ckpt results/control/policy_checkpoint.pkl --steps 50
+# --backend distilled --interpret --repeats 5`, the mean over five keys; the
+# limit is 2.5 times the largest key's distance from the mean (relative),
+# rounded up to a whole percent:
+# keys -225.3547, -225.4998, -222.9890, -225.3340, -224.1049 (spread 0.74%)
+PORT_TRACKING_CKPT = os.path.join(REPO, "results", "tracking_torch", "policy_checkpoint.pkl")
+JAX_TRACKING_TORCH_KEYS = (-225.354736328125, -225.499755859375, -222.98898315429688,
+                           -225.33395385742188, -224.10494995117188)
+JAX_TRACKING_TORCH_EVAL = -224.65647583007814
+TRACKING_TORCH_REL_LIMIT = 0.02
+
+
+def phase_planning_fly_port_trained(table, n=1000, steps=50, phase=37):
+    """results/tracking_torch/policy_checkpoint.pkl (the port's tracking
+    run, written as the JAX package's actor-only pickle) flown by the port
+    as phase 18 flies the JAX run's: within TRACKING_TORCH_REL_LIMIT of
+    JAX_TRACKING_TORCH_EVAL, nlplant_distilled exactly 2 x 50 x 50 times."""
+    _, _, counts = fly_planning_policy(
+        PORT_TRACKING_CKPT, JAX_TRACKING_TORCH_EVAL, TRACKING_TORCH_REL_LIMIT,
+        f"the port-trained tracking policy (results/tracking_torch; JAX keys "
+        f"{[round(k, 4) for k in JAX_TRACKING_TORCH_KEYS]})", n, steps, phase)
+    table["nlplant_distilled"]["launches_planning_port_trained"] = counts["nlplant_distilled"]
 
 
 def phase_policies(table, n=1000, phase=19):
@@ -2036,7 +2086,8 @@ def phase_distill(table, steps=DISTILL_STEPS, phase=27):
     log(f"phase {phase} the fit through to_npz, load_distilled and nlplant_distilled on "
         f"65536 states: kernel vs plain max_abs_err {max(errs):.3e} (phase-3 limits) OK")
 
-    with np.load(os.path.join(REPO, "neuralplane_tpu", "data", "f16_aero_distilled.npz")) as z:
+    shipped_npz = os.path.join(REPO, "neuralplane_tpu_torch", "data", "f16_aero_distilled.npz")
+    with np.load(shipped_npz) as z:
         shipped = distill.DistilledParams(z["W1"], z["b1"], z["W2"], z["b2"], z["W3"][:K],
                                           z["b3"][:K])
         s_mean, s_std = z["out_mean"][:K], z["out_std"][:K]
@@ -3190,6 +3241,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     phase_probes(table)
     log(f"phase 36: {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    phase_planning_fly_port_trained(table)
+    log(f"phase 37: {time.perf_counter() - t0:.1f} s wall")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall in all")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

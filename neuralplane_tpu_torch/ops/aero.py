@@ -56,9 +56,7 @@ IMG_B1H = IMG_B2 + KERNEL_HIDDEN * 4   # b1, b2 rounded to bf16
 IMG_B2H = IMG_B1H + KERNEL_HIDDEN * 2
 IMG_BYTES = IMG_B2H + KERNEL_HIDDEN * 2
 
-_DATA = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "neuralplane_tpu", "data")
+_DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
 _DISTILLED_NPZ = os.path.join(_DATA, "f16_aero_distilled.npz")
 _AERO_NPZ = os.path.join(_DATA, "f16_aero.npz")
 LEAVES = ("W1", "b1", "W2", "b2", "W3", "b3", "out_mean", "out_std")
@@ -168,8 +166,8 @@ def distilled_from_numpy(leaves: Sequence[np.ndarray],
 
 
 def load_distilled(path: str | None = None, device="cuda") -> DistilledAeroWeights:
-    """Load the shipped distilled npz (the JAX package's data file, read by
-    path), checking coefficient order, knots and input scaling as
+    """Load the shipped distilled npz (the port's copy of the JAX package's
+    data file), checking coefficient order, knots and input scaling as
     ops/aero_pallas.py:_load_distilled_np does."""
     path = path or _DISTILLED_NPZ
     with np.load(path) as z:
@@ -327,8 +325,8 @@ def pack_grouped(w: AeroWeights) -> GroupedAeroWeights:
 
 
 def load_aero_weights(path: str | None = None, device="cuda") -> AeroWeights:
-    """Load the shipped 43-net npz (the JAX package's data file, read by
-    path), checking the coefficient order as ops/aero.py:_load_np does."""
+    """Load the shipped 43-net npz (the port's copy of the JAX package's
+    data file), checking the coefficient order as ops/aero.py:_load_np does."""
     path = path or _AERO_NPZ
     with np.load(path) as z:
         names = tuple(str(n) for n in z["names"])

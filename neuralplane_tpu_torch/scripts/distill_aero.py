@@ -10,7 +10,7 @@ The README's configuration of the shipped net is `--hidden 256 --steps
 xdot R^2 of the acceptance gate, and refuses to write the npz if the minimum
 xdot R^2 misses the gate (exit code 1). The raw z-space parameters are saved
 beside the npz (`distill_params_raw.npz`) before any evaluation. Nothing is
-written under the JAX package's data directory; `ops/aero.load_distilled(path)`
+written under the package's `data/` directory; `ops/aero.load_distilled(path)`
 reads the result, and the CUDA kernels take it at --hidden 256 only.
 """
 from __future__ import annotations

@@ -1,8 +1,9 @@
 """Typed scenario configuration (counterpart of neuralplane_tpu/utils/config.py).
 
-The port keeps its own copy of the dataclasses and reads the JAX package's
-scenario YAMLs (`neuralplane_tpu/configs/*.yaml`) by path, as data. Field
-meanings are documented on the JAX side; the defaults here are the same.
+The port keeps its own copy of the dataclasses and of the scenario YAMLs
+(`neuralplane_tpu_torch/configs/*.yaml`, byte for byte the JAX package's).
+Field meanings are documented on the JAX side; the defaults here are the
+same.
 """
 from __future__ import annotations
 
@@ -12,9 +13,8 @@ from typing import Any, Mapping, Optional
 
 import yaml
 
-_CONFIG_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "neuralplane_tpu", "configs")
+_CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "configs")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -309,7 +309,8 @@ def test_train_legs_carries_the_pool_and_eval_lines(tmp_path):
     legs = [json.loads((d / "leg.json").read_text()) for d in (leg0, leg1)]
     assert [leg["episodes"] for leg in legs] == [1, 4] and legs[1]["steps"] == 40
     assert sorted(os.listdir(leg0)) == ["actor_0.pt", "actor_1.pt", "leg.json",
-                                        "metrics.jsonl", "run", "state_latest.pt"]
+                                        "metrics.jsonl", "phases.jsonl", "run",
+                                        "state_latest.pt"]
     assert {f"actor_{k}.pt" for k in range(6)} <= set(os.listdir(leg1))
     recs = [json.loads(line) for d in (leg0, leg1)
             for line in (d / "metrics.jsonl").read_text().splitlines()]

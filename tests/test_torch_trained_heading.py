@@ -56,6 +56,18 @@ PORT_CKPT = os.path.join(PORT_RUN, "policy_checkpoint.pkl")
 ACT_TOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this file's small tensors: the suite runs six
+    workers on the host's cores, where a thread per core spin-waits (the
+    tracking collect's port side in test_torch_trained_tracking.py: 180 s
+    instead of 9.5 s beside six busy processes)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def curve_table():
     spec = importlib.util.spec_from_file_location(
         "curve_table", os.path.join(REPO, "tools", "curve_table.py"))
@@ -153,8 +165,9 @@ def test_first_collect_terminations_track_the_jax_package(tmp_path, reuse_step_x
         "heading_collect_compare", os.path.join(REPO, "tools", "heading_collect_compare.py"))
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
-    args = argparse.Namespace(n=500, steps=320, seed=1, backend="pallas", tmp=str(tmp_path),
-                              set={"reuse_step_xdot": reuse_step_xdot})
+    args = argparse.Namespace(scenario="heading", n=500, steps=320, seed=1, backend="pallas",
+                              tmp=str(tmp_path), set={"reuse_step_xdot": reuse_step_xdot},
+                              update=False)
     cfg_kw = dict(n_rollout_threads=args.n, buffer_size=args.steps, data_chunk_length=8, seed=1)
     jrun, jout, _, _ = tool.run_jax(args, cfg_kw)
     pout, _, _ = tool.run_port(args, cfg_kw, jax.tree.map(np.asarray, jrun.train_state.params))

@@ -2,7 +2,7 @@
 ones (results/combat_eval_torch/REPORT.md).
 
   python tools/combat_eval.py run --out runs/combat_eval [--rows A1 A3 ...]
-      [--pool runs/selfplay_torch --pool-final 61]
+      [--seeds 4 5 6] [--pool runs/selfplay_torch --pool-final 61]
   python tools/combat_eval.py compare --out results/combat_eval_torch
   python tools/combat_eval.py curve results/selfplay/metrics.jsonl \
       results/selfplay_torch/metrics.jsonl --labels JAX port
@@ -15,7 +15,9 @@ argv and last line per seed, the wall seconds of each call, and the card's
 `nvidia-smi` name and power limit. The committed checkpoints are named as
 pool entries through a directory of links (`<out>/links`). Row B is the
 ladder of a self-play run's pool (`--pool`, its final entry `--pool-final`)
-against its entries 1 and 10.
+against its entries 1 and 10. `--seeds` flies the rows at those seeds
+instead of each row's own (`ROWS`), into `<out>/<row>_seeds<first>-<last>.json`;
+`compare` pools every file of a row (`<row>.json` and `<row>_seeds*.json`).
 
 `compare` prints the markdown table of every row written, beside its JAX
 row and the agreement test (a pk row's tallies summed over its seeds):
@@ -149,6 +151,10 @@ def run(args) -> None:
                      [0])
     for name in args.rows or list(rows):
         tool, argv, seeds = rows[name]
+        fname = name
+        if args.seeds:
+            seeds = args.seeds
+            fname = f"{name}_seeds{seeds[0]}-{seeds[-1]}"
         ckpt = args.pool if name == "B" else links
         rec = {"row": name, "card": card, "runs": []}
         for seed in seeds:
@@ -158,7 +164,7 @@ def run(args) -> None:
                                 "wall_s": round(wall, 2)})
             print(f"[combat_eval] {name} seed {seed}: {wall:.1f} s {json.dumps(last)}",
                   flush=True)
-        with open(os.path.join(args.out, f"{name}.json"), "w", encoding="utf-8") as f:
+        with open(os.path.join(args.out, f"{fname}.json"), "w", encoding="utf-8") as f:
             json.dump(rec, f, indent=1)
 
 
@@ -242,16 +248,29 @@ def compare_ladder(name, rec, jax_row):
     return lines
 
 
+def read_row(out: str, name: str):
+    """A row's record with the runs of every file written for it in `out`
+    (`<row>.json`, then `<row>_seeds*.json` in name order), or None."""
+    paths = [os.path.join(out, f"{name}.json")] + sorted(
+        os.path.join(out, f) for f in os.listdir(out)
+        if f.startswith(f"{name}_seeds") and f.endswith(".json"))
+    rec = None
+    for path in filter(os.path.exists, paths):
+        with open(path, encoding="utf-8") as f:
+            part = json.load(f)
+        if rec is None:
+            rec = dict(part, path=path, runs=[])
+        rec["runs"] += part["runs"]
+    return rec
+
+
 def compare(args) -> None:
     print("| Row | Statistic | Port | JAX | Test | Verdict |")
     print("| --- | --- | --- | --- | --- | --- |")
     for name in list(ROWS) + ["B"]:
-        path = os.path.join(args.out, f"{name}.json")
-        if not os.path.exists(path):
+        rec = read_row(args.out, name)
+        if rec is None:
             continue
-        with open(path, encoding="utf-8") as f:
-            rec = json.load(f)
-        rec["path"] = path
         fn = compare_pk if "pk_against_opp" in JAX[name] else compare_ladder
         for line in fn(name, rec, JAX[name]):
             print(line)
@@ -330,6 +349,8 @@ def main(argv=None) -> None:
     r.add_argument("--rows", nargs="*", default=None)
     r.add_argument("--pool", default=None, help="a self-play run's pool directory (row B)")
     r.add_argument("--pool-final", default="latest")
+    r.add_argument("--seeds", type=int, nargs="*", default=None,
+                   help="these seeds instead of each row's own")
     r.add_argument("--device", default="cuda")
     c = sub.add_parser("compare")
     c.add_argument("--out", required=True)

@@ -5,8 +5,10 @@
 
 Prints a markdown table with one row per step of the heading report's rows
 (3e6, 6.3e7, 1.23e8, ... 4.83e8 every 6e7, then 5.16e8 and every 6e7 after
-it) up to `--upto` (default: the shortest run's last step, which is added
-as the last row), and for each run the logged episode's targets reached and
+it), or of `--rows` (steps, or `start:stop:step` ranges with the stop
+included, e.g. `--rows 1e6:6.1e7:1e7` for the tracking run's), up to
+`--upto` (default: the shortest run's last step, which is added as the
+last row), and for each run the logged episode's targets reached and
 episodes failed per rollout, the success share reached / (reached + failed)
 and `average_episode_rewards`; "-" where a run logged no episode at that
 step. Then, for each run, the first step at which the success share
@@ -43,12 +45,29 @@ def success(rec: dict) -> float:
     return reached / (reached + failed) if reached + failed else 0.0
 
 
-def row_steps(upto: int) -> List[int]:
-    steps = [s for s in REPORT_ROWS if s <= upto]
-    s = REPORT_ROWS[-1] + ROW_STEP
-    while s <= upto:
-        steps.append(s)
-        s += ROW_STEP
+def parse_rows(tokens: Sequence[str]) -> List[int]:
+    """`--rows` tokens: a step, or start:stop:step with the stop included."""
+    steps = []
+    for tok in tokens:
+        parts = [int(float(x)) for x in tok.split(":")]
+        if len(parts) == 1:
+            steps.append(parts[0])
+        elif len(parts) == 3 and parts[2] > 0:
+            steps.extend(range(parts[0], parts[1] + 1, parts[2]))
+        else:
+            raise SystemExit(f"curve_table: bad --rows entry {tok!r}")
+    return sorted(set(steps))
+
+
+def row_steps(upto: int, rows: Optional[Sequence[int]] = None) -> List[int]:
+    if rows is not None:
+        steps = [s for s in rows if s <= upto]
+    else:
+        steps = [s for s in REPORT_ROWS if s <= upto]
+        s = REPORT_ROWS[-1] + ROW_STEP
+        while s <= upto:
+            steps.append(s)
+            s += ROW_STEP
     if not steps or steps[-1] != upto:
         steps.append(upto)
     return steps
@@ -62,14 +81,14 @@ def cells(rec: Optional[dict]) -> List[str]:
 
 
 def table(runs: Sequence[Dict[int, dict]], labels: Sequence[str],
-          upto: Optional[int] = None) -> List[str]:
+          upto: Optional[int] = None, rows: Optional[Sequence[int]] = None) -> List[str]:
     """The markdown lines of the side-by-side table."""
     upto = upto if upto is not None else min(max(r) for r in runs)
     head = ["env steps"]
     for lab in labels:
         head += [f"{lab} reached", f"{lab} failed", f"{lab} success", f"{lab} avg reward"]
     lines = ["| " + " | ".join(head) + " |", "|" + "---|" * len(head)]
-    for s in row_steps(upto):
+    for s in row_steps(upto, rows):
         row = [f"{s:,}"]
         for r in runs:
             row += cells(r.get(s))
@@ -103,6 +122,8 @@ def main(argv=None) -> int:
     ap.add_argument("metrics", nargs="+", help="metrics.jsonl files")
     ap.add_argument("--labels", nargs="+", default=None)
     ap.add_argument("--upto", type=float, default=None)
+    ap.add_argument("--rows", nargs="+", default=None,
+                    help="steps or start:stop:step ranges instead of the heading report's")
     ap.add_argument("--crossings", type=float, nargs="*", default=[0.05, 0.4, 0.9, 0.99])
     args = ap.parse_args(argv)
     labels = args.labels or [f"run {i}" for i in range(len(args.metrics))]
@@ -110,7 +131,8 @@ def main(argv=None) -> int:
         raise SystemExit("curve_table: one label per metrics file")
     runs = [read_metrics(p) for p in args.metrics]
     upto = int(args.upto) if args.upto is not None else None
-    print("\n".join(table(runs, labels, upto)))
+    rows = parse_rows(args.rows) if args.rows else None
+    print("\n".join(table(runs, labels, upto, rows)))
     if args.crossings:
         print()
         print("\n".join(crossing_lines(runs, labels, args.crossings)))

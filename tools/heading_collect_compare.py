@@ -1,9 +1,18 @@
-"""One collect of the heading run, by the JAX package and by the port, from
-the same actor and critic, on the CPU: the first episode's statistics.
+"""One collect of the heading run, or of the tracking run, by the JAX package
+and by the port, from the same actor and critic, on the CPU: the first
+episode's statistics.
 
   python tools/heading_collect_compare.py --n 3000 --steps 1000 --backend pallas
   git archive 3f70aa5 | tar -x -C build/jax_3f70aa5
   python tools/heading_collect_compare.py --package jax --jax-root build/jax_3f70aa5
+  python tools/heading_collect_compare.py --scenario tracking --n 256 --steps 10
+
+`--scenario tracking` is the hierarchical run (`scripts/train_tracking.sh`):
+PlanningEnv("tracking") over `--low-level-ckpt` (default the committed
+control policy), on "distilled" (the JAX xdot kernel in interpret mode,
+chosen through NEURALPLANE_AERO_BACKEND as the JAX CLI does), chunks of 10;
+its reset moments are the altitude, the speed and the first target's
+altitude, north and east offsets.
 
 Builds the JAX package's F16SimRunner (today's package, Pallas in interpret
 mode for --backend pallas, its draws then from jax.random outside the
@@ -25,6 +34,9 @@ scenario's config in both packages, e.g. `--set reuse_step_xdot=false`
 (the overload check at the post-step state, as before the JAX package's
 commit 77ade88).
 
+`--update` then runs one PPO update on the collected batch in each package
+and adds its train infos (losses, grad norms, ratio) to the line.
+
 `--jax-root DIR` imports the JAX package from DIR instead, a checkout of
 another commit (e.g. the one the JAX heading run was made at), and
 `--package jax` runs the JAX side alone: the same collect from the same
@@ -40,6 +52,7 @@ import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
+CONTROL_CKPT = os.path.join(REPO, "results", "control", "policy_checkpoint.pkl")
 
 
 def moments(x) -> dict:
@@ -49,16 +62,36 @@ def moments(x) -> dict:
             "max": float(x.max())}
 
 
-def reset_stats(alt, vt, t_alt, t_hdg, t_vt) -> dict:
-    return {"altitude_ft": moments(alt), "vt": moments(vt),
-            "target_altitude": moments(t_alt), "target_heading": moments(t_hdg),
-            "target_vt": moments(t_vt)}
+TARGETS = {"heading": ("target_altitude", "target_heading", "target_vt"),
+           "tracking": ("target_altitude", "target_npos", "target_epos")}
+
+
+def reset_stats(scenario, s, task_state, to_np) -> dict:
+    """Moments of the reset's altitude, speed and the scenario's targets."""
+    out = {"altitude_ft": moments(to_np(s[:, 2])), "vt": moments(to_np(s[:, 6]))}
+    for k in TARGETS[scenario]:
+        out[k] = moments(to_np(getattr(task_state, k)))
+    return out
+
+
+def control_actor(path: str) -> dict:
+    """The actor tree of a JAX checkpoint, by the JAX package's own reader."""
+    import pickle
+    with open(path, "rb") as f:
+        blob = pickle.load(f)
+    return blob["train_state"].params["actor"] if "train_state" in blob else blob
 
 
 def summary(counters: dict, rewards_sum: float, ends: float) -> dict:
     out = {k: float(v) for k, v in sorted(counters.items())}
     out["average_episode_rewards"] = rewards_sum / max(ends, 1.0)
     return out
+
+
+def collect_config(args) -> dict:
+    """The RLConfig keywords of the collect: the run's chunk length."""
+    return dict(n_rollout_threads=args.n, buffer_size=args.steps, seed=args.seed,
+                data_chunk_length=10 if args.scenario == "tracking" else 8)
 
 
 def run_jax(args, cfg_kw):
@@ -69,7 +102,7 @@ def run_jax(args, cfg_kw):
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_default_matmul_precision", "highest")
     orig = pl.pallas_call
-    if args.backend == "pallas":
+    if args.backend in ("pallas", "distilled"):
         pl.pallas_call = lambda *a, **k: orig(*a, **{**k, "interpret": True})
     try:
         return _run_jax(args, cfg_kw)
@@ -81,51 +114,71 @@ def _run_jax(args, cfg_kw):
     import jax
     import numpy as np
     from neuralplane_tpu.algorithms.rl_config import RLConfig
-    from neuralplane_tpu.envs import ControlEnv
+    from neuralplane_tpu.envs import ControlEnv, PlanningEnv
     from neuralplane_tpu.runner import F16SimRunner
     from neuralplane_tpu.utils.config import load_config
-    config = load_config("heading", **args.set) if args.set else "heading"
-    env = ControlEnv(num_envs=args.n, config=config, aero_backend=args.backend,
-                     **({"task": "heading"} if args.set else {}))
+    config = load_config(args.scenario, **args.set) if args.set else args.scenario
+    if args.scenario == "tracking":
+        prev = os.environ.get("NEURALPLANE_AERO_BACKEND")
+        os.environ["NEURALPLANE_AERO_BACKEND"] = args.backend
+        try:
+            env = PlanningEnv(num_envs=args.n, config=config,
+                              low_level_params=control_actor(args.low_level_ckpt))
+        finally:
+            if prev is None:
+                del os.environ["NEURALPLANE_AERO_BACKEND"]
+            else:
+                os.environ["NEURALPLANE_AERO_BACKEND"] = prev
+    else:
+        env = ControlEnv(num_envs=args.n, config=config, aero_backend=args.backend,
+                         **({"task": "heading"} if args.set else {}))
     if args.backend == "pallas" and hasattr(env.config, "kernel_reset_draws"):
         env.config = env.config.replace(kernel_obs_noise=False, kernel_reset_draws=False)
     run = F16SimRunner(env, RLConfig(**cfg_kw), run_dir=os.path.join(args.tmp, "jax"))
     carry = run.init_carry(jax.random.PRNGKey(args.seed))
-    st = carry.env_state
-    mst, tst = st.model, st.task
-    stats = reset_stats(mst.s[:, 2], mst.s[:, 6], tst.target_altitude, tst.target_heading,
-                        tst.target_vt)
+    st = carry.env_state.env if args.scenario == "tracking" else carry.env_state
+    stats = reset_stats(args.scenario, st.model.s, st.task, np.asarray)
     t0 = time.time()
     carry, batch, (_, counters) = run.collect(run.train_state.params, carry)
     masks, bad = np.asarray(batch.masks[1:]), np.asarray(batch.bad_masks[1:])
     ends = float((masks == 0).sum() + (bad == 0).sum())
     out = summary({k: np.asarray(v) for k, v in counters.items()},
                   float(np.asarray(batch.rewards).sum()), ends)
+    # the collect's actor and critic, which the port's side starts from
+    args.jax_params = jax.tree.map(np.asarray, run.train_state.params)
+    if args.update:
+        out["update"] = run.train(batch)
     return run, out, stats, time.time() - t0
 
 
 def run_port(args, cfg_kw, jax_params):
     """The port's side on the CPU: (collect summary, reset moments, seconds)."""
-    import torch
     from neuralplane_tpu_torch.algorithms.networks import params_from_jax
     from neuralplane_tpu_torch.algorithms.rl_config import RLConfig
-    from neuralplane_tpu_torch.envs import ControlEnv
+    from neuralplane_tpu_torch.envs import ControlEnv, PlanningEnv
+    from neuralplane_tpu_torch.envs.planning import load_low_level_ckpt
     from neuralplane_tpu_torch.runner import F16SimRunner
     from neuralplane_tpu_torch.utils.config import load_config
-    env = ControlEnv(num_envs=args.n, config=load_config("heading", **args.set),
-                     task="heading", aero_backend=args.backend, device="cpu")
+    config = load_config(args.scenario, **args.set)
+    if args.scenario == "tracking":
+        env = PlanningEnv(num_envs=args.n, config=config, aero_backend=args.backend,
+                          low_level_params=load_low_level_ckpt(args.low_level_ckpt),
+                          device="cpu")
+    else:
+        env = ControlEnv(num_envs=args.n, config=config, task="heading",
+                         aero_backend=args.backend, device="cpu")
     run = F16SimRunner(env, RLConfig(**cfg_kw), run_dir=os.path.join(args.tmp, "port"))
     run.policy.load_state_dict(params_from_jax(jax_params))
     carry = run.init_carry(args.seed)
-    mst, tst = carry.env_state.model, carry.env_state.task
-    stats = reset_stats(mst.s[:, 2].numpy(), mst.s[:, 6].numpy(),
-                        tst.target_altitude.numpy(), tst.target_heading.numpy(),
-                        tst.target_vt.numpy())
+    st = carry.env_state.env if args.scenario == "tracking" else carry.env_state
+    stats = reset_stats(args.scenario, st.model.s, st.task, lambda t: t.numpy())
     t0 = time.time()
     carry, batch, (_, counters) = run.collect(carry)
     ends = float((batch.masks[1:] == 0).sum() + (batch.bad_masks[1:] == 0).sum())
     out = summary({k: v.numpy() for k, v in counters.items()},
                   float(batch.rewards.sum()), ends)
+    if args.update:
+        out["update"] = run.train(batch)
     run.close()
     return out, stats, time.time() - t0
 
@@ -133,37 +186,42 @@ def run_port(args, cfg_kw, jax_params):
 def main(argv=None) -> int:
     import tempfile
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--scenario", default="heading", choices=sorted(TARGETS))
     ap.add_argument("--n", type=int, default=3000)
     ap.add_argument("--steps", type=int, default=1000)
     ap.add_argument("--seed", type=int, default=1)
-    ap.add_argument("--backend", default="pallas", choices=["pallas", "stacked"])
+    ap.add_argument("--backend", default=None, choices=["pallas", "distilled", "stacked"],
+                    help="default: pallas for heading, distilled for tracking")
+    ap.add_argument("--low-level-ckpt", default=CONTROL_CKPT,
+                    help="tracking: the frozen control actor (a JAX pickle)")
     ap.add_argument("--package", default="both", choices=["both", "jax"])
     ap.add_argument("--jax-root", default=None,
                     help="import neuralplane_tpu from this checkout instead")
+    ap.add_argument("--update", action="store_true",
+                    help="then one PPO update on the collected batch: its train infos "
+                    "under `update` (the port's minibatches come from its own generator)")
     ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                     help="override a key of the heading scenario's config")
     args = ap.parse_args(argv)
     args.set = {k: json.loads(v) for k, v in (kv.split("=", 1) for kv in args.set)}
+    args.backend = args.backend or ("distilled" if args.scenario == "tracking" else "pallas")
     if args.jax_root:
         sys.path.insert(0, os.path.abspath(args.jax_root))
-    cfg_kw = dict(n_rollout_threads=args.n, buffer_size=args.steps, data_chunk_length=8,
-                  seed=args.seed)
+    cfg_kw = collect_config(args)
     with tempfile.TemporaryDirectory() as tmp:
         args.tmp = tmp
         jrun, jout, jstats, jsec = run_jax(args, cfg_kw)
-        import jax
-        import numpy as np
         import neuralplane_tpu
         rows = [("jax", jout, jstats, jsec)]
         if args.package == "both":
-            params = jax.tree.map(np.asarray, jrun.train_state.params)
-            rows.append(("port", *run_port(args, cfg_kw, params)))
+            rows.append(("port", *run_port(args, cfg_kw, args.jax_params)))
         jrun.close()
     for name, out, stats, sec in rows:
         where = os.path.dirname(os.path.dirname(neuralplane_tpu.__file__)) \
             if name == "jax" else REPO
         print(json.dumps({"package": name, "root": os.path.relpath(where, REPO),
-                          "n": args.n, "steps": args.steps, "backend": args.backend,
+                          "scenario": args.scenario, "n": args.n, "steps": args.steps,
+                          "backend": args.backend,
                           "seed": args.seed, "set": args.set, "collect": out,
                           "reset": stats,
                           "collect_s": round(sec, 1)}))

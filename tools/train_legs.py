@@ -9,9 +9,13 @@ success share or at a wall-clock budget, always on a checkpointed episode.
       --resume runs/heading_torch/leg_0 --budget-s 3300 --stop-success 0.99 \
       -- <the same flags>
 
-The child is `python -m neuralplane_tpu_torch.scripts.train <flags>
---run-dir <out>/run`, started from the current directory (the repo root),
-in its own process group. It logs one `metrics.jsonl` line per episode
+The child is the port's train CLI (`neuralplane_tpu_torch.scripts.train
+<flags> --run-dir <out>/run`), started from the current directory (the repo
+root), in its own process group, with its runner's `collect` and `train`
+timed between synchronizations of the device: one line per episode in
+`<out>/phases.jsonl` with `collect_s`, `update_s`, the device's peak MiB
+and the kernel wrappers' launch counts so far in the child (on the CPU no
+synchronization and a peak of 0). It logs one `metrics.jsonl` line per episode
 (`--log-interval 1` is required), an eval line after it on an eval
 episode, and then saves `state_ep<k>.pt` (the default `--save-interval
 1`). For each episode the tool waits for its checkpoint, copies it to
@@ -20,8 +24,10 @@ episode, and then saves `state_ep<k>.pt` (the default `--save-interval
 7.5e8-step heading run would leave 250 of them). So `<out>` never holds a
 line whose checkpoint is missing, and the next leg resumes exactly after
 the last line. A self-play run's pool entries (`actor_<n>.pt`, written
-before the episode's checkpoint) are copied to `<out>` as well: the next
-leg's runner imports its pool from the directory of `--model-dir`.
+before the episode's checkpoint) are copied to `<out>` as well, those that
+the episode's checkpoint names in its pool and no later one (the child may
+already have written the next episode's): the next leg's runner imports
+its pool from the directory of `--model-dir`.
 
 Stop rules, checked after each episode: its success share
 `episodes_reached_target / (episodes_reached_target + episodes_failed)` is
@@ -76,6 +82,14 @@ def is_episode_line(rec: dict) -> bool:
     return "average_episode_rewards" in rec
 
 
+def pool_entries(ckpt: str) -> list:
+    """The `actor_<name>.pt` files of the self-play pool a checkpoint
+    holds (none for the other runners)."""
+    import torch
+    pool = torch.load(ckpt, map_location="cpu", weights_only=True).get("selfplay", {})
+    return [f"actor_{name}.pt" for name in sorted(pool.get("policy_pool", {}))]
+
+
 def copy_atomic(src: str, dst: str) -> None:
     shutil.copyfile(src, dst + ".tmp")
     os.replace(dst + ".tmp", dst)
@@ -104,7 +118,8 @@ def run_leg(out: str, train_argv: list, budget_s: float, stop_success: float,
     os.makedirs(out, exist_ok=True)
     if os.path.exists(os.path.join(out, "metrics.jsonl")):
         raise SystemExit(f"train_legs: {out} already holds a leg")
-    cmd = [sys.executable, "-m", "neuralplane_tpu_torch.scripts.train", *argv,
+    cmd = [sys.executable, os.path.abspath(__file__), "--timed-child",
+           os.path.join(out, "phases.jsonl"), "--", *argv,
            "--run-dir", run_dir, "--num-env-steps", str(total - done_steps)]
     print(f"[train_legs] {' '.join(cmd)}", flush=True)
     child = subprocess.Popen(cmd, start_new_session=True)
@@ -114,7 +129,7 @@ def run_leg(out: str, train_argv: list, budget_s: float, stop_success: float,
 
     def take_ready_lines() -> bool:
         """Move the lines of every episode whose checkpoint exists to `out`
-        (with the pool entries saved so far); True if a stop rule fired."""
+        (with the pool entries its checkpoint names); True if a stop rule fired."""
         nonlocal taken, last, stopped, pos
         while os.path.exists(os.path.join(ckpts, f"state_ep{taken}.pt")):
             # the episode's checkpoint follows all of its lines
@@ -125,8 +140,8 @@ def run_leg(out: str, train_argv: list, budget_s: float, stop_success: float,
                 end += 1
             ep_ckpt = os.path.join(ckpts, f"state_ep{taken}.pt")
             copy_atomic(ep_ckpt, os.path.join(out, "state_latest.pt"))
-            for name in sorted(os.listdir(ckpts)):
-                if name.startswith("actor_") and not os.path.exists(os.path.join(out, name)):
+            for name in pool_entries(ep_ckpt):
+                if not os.path.exists(os.path.join(out, name)):
                     copy_atomic(os.path.join(ckpts, name), os.path.join(out, name))
             with open(os.path.join(out, "metrics.jsonl"), "a", encoding="utf-8") as f:
                 for rec in lines[pos:end]:
@@ -182,6 +197,48 @@ def run_leg(out: str, train_argv: list, budget_s: float, stop_success: float,
     return leg
 
 
+def timed_child(path: str, train_argv: list) -> None:
+    """The train CLI in this process, each runner's `collect` and `train`
+    timed between device synchronizations, one `path` line per episode."""
+    import torch
+    from chip_smoke import kernel_counters
+    from neuralplane_tpu_torch.runner import F16SimRunner, SelfplayRunner
+    from neuralplane_tpu_torch.runner.base import Runner
+    from neuralplane_tpu_torch.scripts import train
+    cuda = torch.cuda.is_available()
+    counters = kernel_counters()
+    rec = {"episode": 0}
+
+    def clock() -> float:
+        if cuda:
+            torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def timed(cls, name, key):
+        inner = getattr(cls, name)
+
+        def call(self, *a, **k):
+            t0 = clock()
+            out = inner(self, *a, **k)
+            rec[key] = round(clock() - t0, 4)
+            if key == "update_s":   # the episode's last phase
+                rec["peak_mib"] = (round(torch.cuda.max_memory_allocated() / 2 ** 20, 1)
+                                   if cuda else 0.0)
+                rec["launches"] = {n: c.launches for n, c in counters.items()}
+                with open(path, "a", encoding="utf-8") as f:
+                    f.write(json.dumps(rec) + "\n")
+                episode = rec["episode"]
+                rec.clear()
+                rec["episode"] = episode + 1
+            return out
+        setattr(cls, name, call)
+
+    timed(F16SimRunner, "collect", "collect_s")
+    timed(SelfplayRunner, "collect", "collect_s")
+    timed(Runner, "train", "update_s")
+    train.main(train_argv)
+
+
 def export_actor(state_path: str, to: str, train_argv: list) -> None:
     """The actor of a port checkpoint as the JAX package's actor-only pickle."""
     from neuralplane_tpu_torch.algorithms.networks import params_to_jax
@@ -208,8 +265,13 @@ def main(argv=None) -> int:
     ap.add_argument("--stop-success", type=float, default=0.99)
     ap.add_argument("--export-actor", default=None, metavar="STATE_PT")
     ap.add_argument("--to", default=None, help="the pickle --export-actor writes")
+    ap.add_argument("--timed-child", default=None, metavar="PHASES_JSONL",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv[:split])
     train_argv = argv[split + 1:]
+    if args.timed_child:
+        timed_child(args.timed_child, train_argv)
+        return 0
     if args.export_actor:
         export_actor(args.export_actor, args.to, train_argv)
         return 0
