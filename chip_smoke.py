@@ -136,13 +136,22 @@ Phases, each reported on its own line:
      package's actor-only pickle) flown as in 18, against the JAX package's
      eval of the same pickle: 5000 nlplant_distilled launches, the success
      share logged.
+ 38. the port's own control run (results/control_torch, trained on the card
+     from scratch with the overload check at the post-step state, written
+     as the JAX package's actor-only pickle) flown by the port at 1000 envs
+     x 2500 steps, each against the JAX package's eval of the same pickle:
+     (a) on the run's scenario and "pallas", the portable step, 5000
+     nlplant_grouped launches; (b) on phase 19's configuration (the control
+     scenario, "distilled", the fused step), 2500 env_step launches; each
+     part's success share logged beside the JAX eval's and beside phase
+     19's for the committed control policy.
 
 The launch counters are set to 0 just before phases 6, 7, 12, 13, 14, 15,
-16, 35, 17, 18, 37, each eval of 19, each timed run of 20 and 23, the runs of 21,
-24 and 25, the evals of 22 and 26, each render of 29, each run of 32,
-each rank's runs in 33, each row of 34(b-d) and each probe run of 36, and
-read just after; a kernel of the path that did not launch, or one that
-launched off its path in 17-26, 29 and 32-37, fails the run. Any
+16, 35, 17, 18, 37, each eval of 19 and 38, each timed run of 20 and 23, the
+runs of 21, 24 and 25, the evals of 22 and 26, each render of 29, each run
+of 32, each rank's runs in 33, each row of 34(b-d) and each probe run of 36,
+and read just after; a kernel of the path that did not launch, or one that
+launched off its path in 17-26, 29 and 32-38, fails the run. Any
 mismatch, non-finite value or failed check exits non-zero. The
 second-to-last line is the kernel table as JSON, the last line the device
 record.
@@ -1491,6 +1500,10 @@ def phase_planning_fly_port_trained(table, n=1000, steps=50, phase=37):
     table["nlplant_distilled"]["launches_planning_port_trained"] = counts["nlplant_distilled"]
 
 
+# phase 19's success shares by policy, which phase 38 logs beside its own
+SUCCESS_SHARES = {}
+
+
 def phase_policies(table, n=1000, phase=19):
     """The other committed single-level policies flown by the port's eval,
     each against the JAX package's on the same backend: results/control on
@@ -1512,17 +1525,21 @@ def phase_policies(table, n=1000, phase=19):
         with tempfile.TemporaryDirectory() as run_dir:
             runner = F16SimRunner(env, RLConfig(), run_dir=run_dir, model_dir=ckpt)
             runner.close()
+        runner.eval_env = counting = CountingEnv(env)
         zero_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         value = runner.eval(steps)["eval_average_episode_rewards"]
         wall = time.perf_counter() - t0
         counts = read_counts()
+        reached, failed = int(counting.reached), int(counting.failed)
+        SUCCESS_SHARES[name] = reached / max(1, reached + failed)
         log(f"phase {phase} results/{name} on ControlEnv({scenario}, model={model}) flown by "
             f"the port: eval_average_episode_rewards {value:.4f} (the JAX package on the "
-            f"CPU: {ref}, limit {limit}); n={n}, {steps} steps in {wall:.3f} s "
-            f"({wall * 1e3 / steps:.4f} ms/step), fused {env.fused}, launches {counts}, "
-            f"noise_scale {env.config.noise_scale}")
+            f"CPU: {ref}, limit {limit}); targets reached {reached}, episodes failed "
+            f"{failed}, success share {SUCCESS_SHARES[name]:.4f}; n={n}, {steps} steps in "
+            f"{wall:.3f} s ({wall * 1e3 / steps:.4f} ms/step), fused {env.fused}, launches "
+            f"{counts}, noise_scale {env.config.noise_scale}")
         check_counts(f"results/{name} eval", counts,
                      {"env_step": steps} if model == "F16" else {})
         rel = abs(value - ref) / abs(ref)
@@ -1531,6 +1548,85 @@ def phase_policies(table, n=1000, phase=19):
                            f"from the JAX package's eval (limit {limit})")
         if model == "F16":
             table["env_step"]["launches_control_eval"] = counts["env_step"]
+
+# Phase 38: the port's control run (results/control_torch: trained on the card
+# from scratch on control_post_step_xdot.yaml and "pallas", to the JAX run's
+# first leg) flown by the port, against the JAX package's F16SimRunner.eval of
+# the same actor-only pickle on the CPU at 1000 envs x 2500 steps, the Pallas
+# kernels in interpret mode (their draws by jax.random outside the kernel), the
+# mean over the runner's first five keys, with the targets reached and the
+# episodes failed summed beside the reward (`--success`):
+# (a) `python tools/heading_eval.py --package jax --scenario
+#     results/control_torch/control_post_step_xdot.yaml --backend pallas
+#     --interpret --checkpoint results/control_torch/policy_checkpoint.pkl
+#     --repeats 5 --success`: keys -92.4359, -84.4415, -82.8605, -84.2112,
+#     -92.2329 (spread 5.96%), 12,640 targets reached and 5,705 episodes
+#     failed in all;
+# (b) the same with `--scenario control --backend distilled` (phase 19's
+#     configuration: the fused step): keys -164.2037, -160.7412, -167.8618,
+#     -164.2776, -169.1957 (spread 2.73%), 10,545 reached, 18,429 failed.
+# Each limit is 2.5 times the largest key's distance from the mean (relative),
+# rounded up to a whole percent, as phase 19's; the success share is the five
+# keys' reached over reached + failed.
+PORT_CONTROL_RUN = os.path.join(REPO, "results", "control_torch")
+PORT_CONTROL_CKPT = os.path.join(PORT_CONTROL_RUN, "policy_checkpoint.pkl")
+PORT_CONTROL_SCENARIO = os.path.join(PORT_CONTROL_RUN, "control_post_step_xdot.yaml")
+# part: (scenario, backend, JAX keys, JAX mean, JAX success share, limit)
+CONTROL_TORCH_FLY = {
+    "a": (PORT_CONTROL_SCENARIO, "pallas",
+          (-92.43588256835938, -84.44154357910156, -82.8604507446289, -84.2112045288086,
+           -92.23294830322266), -87.23640594482421, 0.6890160806759335, 0.15),
+    "b": ("control", "distilled",
+          (-164.20372009277344, -160.7411651611328, -167.86178588867188, -164.27764892578125,
+           -169.19570922851562), -165.256005859375, 0.36394698695382066, 0.07),
+}
+
+
+def phase_fly_control_port_trained(table, n=1000, steps=2500, phase=38):
+    """results/control_torch/policy_checkpoint.pkl flown by the port's
+    F16SimRunner.eval, each part of CONTROL_TORCH_FLY on its scenario and
+    backend: (a) the portable step, nlplant_grouped exactly twice per step;
+    (b) the fused step, env_step exactly once per step; each reward within
+    its limit of the JAX package's eval."""
+    import tempfile
+    from neuralplane_tpu_torch.algorithms.rl_config import RLConfig
+    from neuralplane_tpu_torch.envs import ControlEnv
+    from neuralplane_tpu_torch.runner import F16SimRunner
+    for part, (scenario, backend, keys, ref, ref_share, limit) in CONTROL_TORCH_FLY.items():
+        env = ControlEnv(num_envs=n, config=scenario, aero_backend=backend, device="cuda")
+        fused = part == "b"
+        if env.fused != fused:
+            raise Mismatch(f"phase {phase}({part}): env.fused is {env.fused}, want {fused}")
+        with tempfile.TemporaryDirectory() as run_dir:
+            runner = F16SimRunner(env, RLConfig(), run_dir=run_dir, model_dir=PORT_CONTROL_CKPT)
+            runner.close()
+        runner.eval_env = counting = CountingEnv(env)
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        value = runner.eval(steps)["eval_average_episode_rewards"]
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        reached, failed = int(counting.reached), int(counting.failed)
+        share = reached / max(1, reached + failed)
+        rel = abs(value - ref) / abs(ref)
+        log(f"phase {phase}({part}) the port-trained control policy (results/control_torch) "
+            f"on ControlEnv({os.path.basename(scenario)}, {backend}) flown by the port: "
+            f"eval_average_episode_rewards {value:.4f} (the JAX package on the CPU: "
+            f"{ref:.4f}, keys {[round(k, 4) for k in keys]}, relative difference {rel:.4f}, "
+            f"limit {limit}); targets reached {reached}, episodes failed {failed}, success "
+            f"share {share:.4f} (the JAX eval's {ref_share:.4f}; phase 19's for "
+            f"results/control: {SUCCESS_SHARES.get('control', float('nan')):.4f}); n={n}, "
+            f"{steps} steps in {wall:.3f} s ({wall * 1e3 / steps:.4f} ms/step), fused "
+            f"{env.fused}, launches {counts}")
+        want = {"env_step": steps} if fused else {"nlplant_grouped": 2 * steps}
+        check_counts(f"phase {phase}({part})", counts, want)
+        if not rel <= limit:
+            raise Mismatch(f"phase {phase}({part}): the port's eval reward is {rel:.4f} away "
+                           f"from the JAX package's (limit {limit})")
+        name = "env_step" if fused else "nlplant_grouped"
+        table[name]["launches_control_port_trained"] = counts[name]
+
 
 # One combat step with the xdot kernel against the same step with its plain
 # version (phase 20): a 1v1 step chains 11 xdot evaluations through five
@@ -3244,6 +3340,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     phase_planning_fly_port_trained(table)
     log(f"phase 37: {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    phase_fly_control_port_trained(table)
+    log(f"phase 38: {time.perf_counter() - t0:.1f} s wall")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall in all")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -12,7 +12,11 @@ last row), and for each run the logged episode's targets reached and
 episodes failed per rollout, the success share reached / (reached + failed)
 and `average_episode_rewards`; "-" where a run logged no episode at that
 step. Then, for each run, the first step at which the success share
-reaches each of `--crossings`. Reads any `metrics.jsonl` whose lines carry
+reaches each of `--crossings`: the logged episode's share, or with
+`--window K` the mean share of the last K logged episodes. `--spans
+start:stop ...` then prints, for each run and span, the mean and standard
+deviation of the success share and of `average_episode_rewards` over the
+logged episodes with start <= step <= stop. Reads any `metrics.jsonl` whose lines carry
 `step`, `episodes_reached_target`, `episodes_failed` and
 `average_episode_rewards` (both packages' runners write them). Imports
 neither JAX nor matplotlib.
@@ -21,6 +25,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import sys
 from typing import Dict, List, Optional, Sequence
 
@@ -97,23 +102,63 @@ def table(runs: Sequence[Dict[int, dict]], labels: Sequence[str],
 
 
 def first_crossing(run: Dict[int, dict], share: float) -> Optional[int]:
-    for s in sorted(run):
-        if success(run[s]) >= share:
-            return s
+    return first_window_crossing(run, share, 1)
+
+
+def first_window_crossing(run: Dict[int, dict], share: float, window: int) -> Optional[int]:
+    """The step of the first logged episode at which the mean success share
+    of it and the window - 1 logged episodes before it reaches `share`."""
+    steps = sorted(run)
+    shares = [success(run[s]) for s in steps]
+    for i in range(window - 1, len(steps)):
+        if sum(shares[i - window + 1:i + 1]) / window >= share:
+            return steps[i]
     return None
 
 
 def crossing_lines(runs: Sequence[Dict[int, dict]], labels: Sequence[str],
-                   shares: Sequence[float]) -> List[str]:
+                   shares: Sequence[float], window: int = 1) -> List[str]:
+    what = ("first logged success share" if window == 1
+            else f"first rolling {window}-episode success share")
     out = []
     for run, lab in zip(runs, labels):
         parts = []
         for share in shares:
-            s = first_crossing(run, share)
+            s = first_window_crossing(run, share, window)
             parts.append(f">= {100 * share:g}% at {s:,}" if s is not None
                          else f">= {100 * share:g}% not reached")
-        out.append(f"{lab}: first logged success share " + ", ".join(parts)
-                   + f" (last step {max(run):,})")
+        out.append(f"{lab}: {what} " + ", ".join(parts) + f" (last step {max(run):,})")
+    return out
+
+
+def span_stats(run: Dict[int, dict], start: int, stop: int) -> Optional[dict]:
+    """Mean and sample standard deviation of the success share and the
+    reward over the logged episodes with start <= step <= stop."""
+    recs = [run[s] for s in sorted(run) if start <= s <= stop]
+    if not recs:
+        return None
+    shares = [success(r) for r in recs]
+    rewards = [r["average_episode_rewards"] for r in recs]
+
+    def sd(xs):
+        return statistics.stdev(xs) if len(xs) > 1 else 0.0
+    return {"episodes": len(recs), "success": statistics.fmean(shares),
+            "success_sd": sd(shares), "reward": statistics.fmean(rewards),
+            "reward_sd": sd(rewards)}
+
+
+def span_lines(runs: Sequence[Dict[int, dict]], labels: Sequence[str],
+               spans: Sequence[str]) -> List[str]:
+    out = []
+    for tok in spans:
+        start, stop = (int(float(x)) for x in tok.split(":"))
+        for run, lab in zip(runs, labels):
+            st = span_stats(run, start, stop)
+            head = f"{lab} {start:,}-{stop:,}:"
+            out.append(f"{head} no logged episode" if st is None else
+                       f"{head} {st['episodes']} episodes, success {st['success']:.4f} "
+                       f"(sd {st['success_sd']:.4f}), reward {st['reward']:.2f} "
+                       f"(sd {st['reward_sd']:.2f})")
     return out
 
 
@@ -125,6 +170,10 @@ def main(argv=None) -> int:
     ap.add_argument("--rows", nargs="+", default=None,
                     help="steps or start:stop:step ranges instead of the heading report's")
     ap.add_argument("--crossings", type=float, nargs="*", default=[0.05, 0.4, 0.9, 0.99])
+    ap.add_argument("--window", type=int, default=1,
+                    help="crossings of the mean share over this many logged episodes")
+    ap.add_argument("--spans", nargs="+", default=None, metavar="START:STOP",
+                    help="mean and sd of the success share and reward over these steps")
     args = ap.parse_args(argv)
     labels = args.labels or [f"run {i}" for i in range(len(args.metrics))]
     if len(labels) != len(args.metrics):
@@ -135,7 +184,10 @@ def main(argv=None) -> int:
     print("\n".join(table(runs, labels, upto, rows)))
     if args.crossings:
         print()
-        print("\n".join(crossing_lines(runs, labels, args.crossings)))
+        print("\n".join(crossing_lines(runs, labels, args.crossings, args.window)))
+    if args.spans:
+        print()
+        print("\n".join(span_lines(runs, labels, args.spans)))
     return 0
 
 

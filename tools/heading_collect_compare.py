@@ -37,6 +37,12 @@ commit 77ade88).
 `--update` then runs one PPO update on the collected batch in each package
 and adds its train infos (losses, grad norms, ratio) to the line.
 
+`--checkpoint PKL` starts both packages' collect from a trained actor
+instead: the JAX runner grafts it (an actor-only pickle, or a whole
+TrainState's actor), and the port takes the JAX runner's params as before.
+The collect then is the first episode after a restore, which starts every
+env from a fresh reset in both packages.
+
 `--jax-root DIR` imports the JAX package from DIR instead, a checkout of
 another commit (e.g. the one the JAX heading run was made at), and
 `--package jax` runs the JAX side alone: the same collect from the same
@@ -63,6 +69,7 @@ def moments(x) -> dict:
 
 
 TARGETS = {"heading": ("target_altitude", "target_heading", "target_vt"),
+           "control": ("target_pitch", "target_heading", "target_vt"),
            "tracking": ("target_altitude", "target_npos", "target_epos")}
 
 
@@ -131,10 +138,11 @@ def _run_jax(args, cfg_kw):
                 os.environ["NEURALPLANE_AERO_BACKEND"] = prev
     else:
         env = ControlEnv(num_envs=args.n, config=config, aero_backend=args.backend,
-                         **({"task": "heading"} if args.set else {}))
+                         **({"task": args.scenario} if args.set else {}))
     if args.backend == "pallas" and hasattr(env.config, "kernel_reset_draws"):
         env.config = env.config.replace(kernel_obs_noise=False, kernel_reset_draws=False)
-    run = F16SimRunner(env, RLConfig(**cfg_kw), run_dir=os.path.join(args.tmp, "jax"))
+    run = F16SimRunner(env, RLConfig(**cfg_kw), run_dir=os.path.join(args.tmp, "jax"),
+                       model_dir=getattr(args, "checkpoint", None))
     carry = run.init_carry(jax.random.PRNGKey(args.seed))
     st = carry.env_state.env if args.scenario == "tracking" else carry.env_state
     stats = reset_stats(args.scenario, st.model.s, st.task, np.asarray)
@@ -165,7 +173,7 @@ def run_port(args, cfg_kw, jax_params):
                           low_level_params=load_low_level_ckpt(args.low_level_ckpt),
                           device="cpu")
     else:
-        env = ControlEnv(num_envs=args.n, config=config, task="heading",
+        env = ControlEnv(num_envs=args.n, config=config, task=args.scenario,
                          aero_backend=args.backend, device="cpu")
     run = F16SimRunner(env, RLConfig(**cfg_kw), run_dir=os.path.join(args.tmp, "port"))
     run.policy.load_state_dict(params_from_jax(jax_params))
@@ -200,6 +208,8 @@ def main(argv=None) -> int:
     ap.add_argument("--update", action="store_true",
                     help="then one PPO update on the collected batch: its train infos "
                     "under `update` (the port's minibatches come from its own generator)")
+    ap.add_argument("--checkpoint", default=None,
+                    help="a JAX pickle whose actor both packages collect with")
     ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                     help="override a key of the heading scenario's config")
     args = ap.parse_args(argv)
@@ -222,7 +232,8 @@ def main(argv=None) -> int:
         print(json.dumps({"package": name, "root": os.path.relpath(where, REPO),
                           "scenario": args.scenario, "n": args.n, "steps": args.steps,
                           "backend": args.backend,
-                          "seed": args.seed, "set": args.set, "collect": out,
+                          "seed": args.seed, "set": args.set,
+                          "checkpoint": args.checkpoint, "collect": out,
                           "reset": stats,
                           "collect_s": round(sec, 1)}))
     return 0

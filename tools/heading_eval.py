@@ -44,6 +44,13 @@ checkpoint is read by the MAPPO runner, a whole MAPPO TrainState or an
 actor-only pickle, and its actor flies every agent; the line also carries each repeat's missile launches and hits per step
 (`launches_per_step`, `hits_per_step`).
 
+With --success (Control only) each eval also sums the targets reached
+(`done`) and the episodes failed (`bad_done`) over its steps, and the line
+carries `reached`, `failed` and `success_share` = reached / (reached +
+failed) per repeat: the JAX side runs F16SimRunner.eval's rollout (its keys,
+its scan, its reward per episode end) with the two sums added, the port's
+runner evaluates through a counting wrapper of its env.
+
 `--package jax` runs neuralplane_tpu on the CPU; "stacked" is its CPU
 default, "pallas" the same 43 nets with the fused kernels' bf16 rounding
 points and needs --interpret (the Pallas kernels in interpret mode; their
@@ -167,6 +174,56 @@ def port_combat_values(args, env, runner):
     return values, shots
 
 
+def jax_control_values(args, env, runner):
+    """F16SimRunner.eval's deterministic rollout, JAX package
+    (runner/f16sim.py:eval), with the targets reached and the episodes
+    failed summed beside the reward: (rewards, [(reached, failed)])."""
+    import functools
+
+    import jax
+    import jax.numpy as jnp
+
+    @functools.partial(jax.jit, static_argnames=("steps",))
+    def rollout(params, init, steps):
+        def step_fn(carry, _):
+            state, obs, h_a, masks, total_rew, total_done, reached, failed = carry
+            actions, h_a = runner.policy.act(params, obs, h_a, masks, deterministic=True)
+            state, out = env.step(state, actions)
+            reset = out.done | out.bad_done | out.exceed_time_limit
+            masks = 1.0 - out.done.astype(jnp.float32)[:, None]
+            h_a = h_a * (1.0 - reset.astype(jnp.float32))[:, None, None]
+            return (state, out.obs, h_a, masks, total_rew + out.reward.sum(),
+                    total_done + reset.sum(), reached + out.done.sum(),
+                    failed + out.bad_done.sum()), None
+        return jax.lax.scan(step_fn, init, None, length=steps)[0]
+
+    values, counts = [], []
+    for _ in range(args.repeats):
+        key = runner.next_key()
+        k_reset, key = jax.random.split(key)
+        state, obs = env.reset(k_reset)
+        h_a, _ = runner.policy.init_rnn_states(env.n)
+        zero = jnp.zeros((), jnp.int32)
+        out = rollout(runner.train_state.params,
+                      (state, obs, h_a, jnp.ones((env.n, 1), jnp.float32), jnp.zeros(()),
+                       zero, zero, zero), steps=args.steps)
+        values.append(float(out[4] / jnp.maximum(out[5], 1)))
+        counts.append((int(out[6]), int(out[7])))
+    return values, counts
+
+
+def port_control_values(args, env, runner):
+    """The port's F16SimRunner.eval through chip_smoke's counting wrapper
+    of the env: (rewards, [(reached, failed)])."""
+    from chip_smoke import CountingEnv
+    values, counts = [], []
+    for _ in range(args.repeats):
+        runner.eval_env = counting = CountingEnv(env)
+        values.append(runner.eval(args.steps)["eval_average_episode_rewards"])
+        counts.append((int(counting.reached), int(counting.failed)))
+    return values, counts
+
+
 def port_evals(args):
     from neuralplane_tpu_torch.algorithms.rl_config import RLConfig
     from neuralplane_tpu_torch.envs import ControlEnv
@@ -207,18 +264,25 @@ def main(argv=None) -> None:
     ap.add_argument("--interpret", action="store_true",
                     help="JAX: run the Pallas kernels in interpret mode")
     ap.add_argument("--device", default="cpu", help="port: torch device")
+    ap.add_argument("--success", action="store_true",
+                    help="Control: also count the targets reached and the episodes failed")
     args = ap.parse_args(argv)
+    if args.success and args.env_name != "Control":
+        ap.error("--success counts the Control env's targets")
     env, runner_cls, cfg_cls = (jax_evals if args.package == "jax" else port_evals)(args)
     t0 = time.perf_counter()
     # the missile policies were trained with the Beta launch prior on
     cfg = cfg_cls(use_prior=args.env_name.endswith("Shoot"))
-    shots = None
+    shots = counts = None
     with tempfile.TemporaryDirectory() as run_dir:
         runner = runner_cls(env, cfg, run_dir=run_dir, model_dir=args.checkpoint)
         try:
             if args.env_name in COMBAT:
                 values, shots = (jax_combat_values if args.package == "jax"
                                  else port_combat_values)(args, env, runner)
+            elif args.success:
+                values, counts = (jax_control_values if args.package == "jax"
+                                  else port_control_values)(args, env, runner)
             else:
                 values = [runner.eval(args.steps)["eval_average_episode_rewards"]
                           for _ in range(args.repeats)]
@@ -228,6 +292,9 @@ def main(argv=None) -> None:
     if shots is not None and args.env_name.endswith("Shoot"):
         extra = {"launches_per_step": [s[0] for s in shots],
                  "hits_per_step": [s[1] for s in shots]}
+    if counts is not None:
+        extra = {"reached": [c[0] for c in counts], "failed": [c[1] for c in counts],
+                 "success_share": [c[0] / max(1, c[0] + c[1]) for c in counts]}
     print(json.dumps({"package": args.package, "checkpoint": os.path.relpath(args.checkpoint, REPO),
                       "env_name": args.env_name, "model": args.model,
                       "scenario": args.scenario, "n": args.n, "steps": args.steps,

@@ -51,6 +51,14 @@ cumulative steps and wall seconds, and why it stopped.
 writes the checkpoint's actor as the JAX package's actor-only pickle
 (`params_to_jax`, `save_actor_pickle`), the policy built from the flags'
 env and network sizes on the CPU. Imports no JAX.
+
+  python tools/train_legs.py --profile runs/heading_torch/leg_1/state_latest.pt \
+      -- <the same flags>
+
+restores the checkpoint into the flags' runner on the card, runs one
+collect, and profiles 20 collect steps and one epoch of the update on its
+batch (`chip_smoke.profile_training`: device busy, idle share and device
+launches per call, from torch.profiler).
 """
 from __future__ import annotations
 
@@ -172,7 +180,9 @@ def run_leg(out: str, train_argv: list, budget_s: float, stop_success: float,
         while True:
             rc = child.poll()
             if take_ready_lines():
-                os.killpg(child.pid, signal.SIGKILL)
+                # the poll above may have reaped a child that already ended
+                if child.returncode is None:
+                    os.killpg(child.pid, signal.SIGKILL)
                 child.wait()
                 rc = 0
                 break
@@ -255,6 +265,28 @@ def export_actor(state_path: str, to: str, train_argv: list) -> None:
     print(f"[train_legs] wrote {to} ({os.path.getsize(to)} bytes) from {state_path}")
 
 
+def profile_run(state_path: str, train_argv: list) -> None:
+    """Where an episode of the flags' run spends the device's time, from a
+    checkpoint of it: one collect, then 20 profiled collect steps and one
+    profiled update epoch."""
+    import tempfile
+    from chip_smoke import profile_training, timed_runner
+    from neuralplane_tpu_torch.scripts.train import args_to_config, get_parser, make_env
+    args = get_parser().parse_args(train_argv)
+    env = make_env(args)
+    with tempfile.TemporaryDirectory() as run_dir:
+        runner = timed_runner()(env, args_to_config(args), run_dir=run_dir,
+                                model_dir=state_path)
+        try:
+            runner.collect(runner.init_carry(runner.next_seed()))
+            print(f"[train_legs] profile from {state_path}: one collect "
+                  f"{runner.times['collect'][0]:.3f} s, launches "
+                  f"{runner.collect_launches[0]}", flush=True)
+            profile_training(runner, phase="profile")
+        finally:
+            runner.close()
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     split = argv.index("--") if "--" in argv else len(argv)
@@ -265,6 +297,8 @@ def main(argv=None) -> int:
     ap.add_argument("--stop-success", type=float, default=0.99)
     ap.add_argument("--export-actor", default=None, metavar="STATE_PT")
     ap.add_argument("--to", default=None, help="the pickle --export-actor writes")
+    ap.add_argument("--profile", default=None, metavar="STATE_PT",
+                    help="profile a collect step and an update epoch from this checkpoint")
     ap.add_argument("--timed-child", default=None, metavar="PHASES_JSONL",
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv[:split])
@@ -274,6 +308,9 @@ def main(argv=None) -> int:
         return 0
     if args.export_actor:
         export_actor(args.export_actor, args.to, train_argv)
+        return 0
+    if args.profile:
+        profile_run(args.profile, train_argv)
         return 0
     leg = run_leg(args.out, train_argv, args.budget_s, args.stop_success, args.resume)
     return 0 if leg["rc"] == 0 and leg["episodes"] else 1
