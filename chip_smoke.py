@@ -145,13 +145,19 @@ Phases, each reported on its own line:
      scenario, "distilled", the fused step), 2500 env_step launches; each
      part's success share logged beside the JAX eval's and beside phase
      19's for the committed control policy.
+ 39. the port's step-start control run (results/control_torch_stepstart:
+     phase 38's policy carried across the JAX control run's switch to the
+     step-start overload check, trained on the card on the fused step at
+     3000 envs x buffer 3000) flown as 38(b), against the JAX package's eval
+     of the same pickle: 2500 env_step launches, the success share logged
+     beside phase 19's and 38(b)'s.
 
 The launch counters are set to 0 just before phases 6, 7, 12, 13, 14, 15,
-16, 35, 17, 18, 37, each eval of 19 and 38, each timed run of 20 and 23, the
+16, 35, 17, 18, 37, each eval of 19, 38 and 39, each timed run of 20 and 23, the
 runs of 21, 24 and 25, the evals of 22 and 26, each render of 29, each run
 of 32, each rank's runs in 33, each row of 34(b-d) and each probe run of 36,
 and read just after; a kernel of the path that did not launch, or one that
-launched off its path in 17-26, 29 and 32-38, fails the run. Any
+launched off its path in 17-26, 29 and 32-39, fails the run. Any
 mismatch, non-finite value or failed check exits non-zero. The
 second-to-last line is the kernel table as JSON, the last line the device
 record.
@@ -1500,7 +1506,8 @@ def phase_planning_fly_port_trained(table, n=1000, steps=50, phase=37):
     table["nlplant_distilled"]["launches_planning_port_trained"] = counts["nlplant_distilled"]
 
 
-# phase 19's success shares by policy, which phase 38 logs beside its own
+# success shares, phase 19's by policy name, then phases 38-39's by phase;
+# each of 38-39 logs the control policies' shares before it beside its own
 SUCCESS_SHARES = {}
 
 
@@ -1571,7 +1578,9 @@ def phase_policies(table, n=1000, phase=19):
 PORT_CONTROL_RUN = os.path.join(REPO, "results", "control_torch")
 PORT_CONTROL_CKPT = os.path.join(PORT_CONTROL_RUN, "policy_checkpoint.pkl")
 PORT_CONTROL_SCENARIO = os.path.join(PORT_CONTROL_RUN, "control_post_step_xdot.yaml")
-# part: (scenario, backend, JAX keys, JAX mean, JAX success share, limit)
+# part: (scenario, backend, JAX keys, JAX mean, JAX success share, limit);
+# "distilled" is the fused step here, "pallas" (on the post-step scenario)
+# the portable one
 CONTROL_TORCH_FLY = {
     "a": (PORT_CONTROL_SCENARIO, "pallas",
           (-92.43588256835938, -84.44154357910156, -82.8604507446289, -84.2112045288086,
@@ -1580,25 +1589,48 @@ CONTROL_TORCH_FLY = {
           (-164.20372009277344, -160.7411651611328, -167.86178588867188, -164.27764892578125,
            -169.19570922851562), -165.256005859375, 0.36394698695382066, 0.07),
 }
+# Phase 39: the port's step-start run (results/control_torch_stepstart:
+# results/control_torch resumed for the JAX run's rows 264-266, then its
+# rows 267-347 trained on the card on ControlEnv("control", "distilled") at
+# 3000 envs x buffer 3000) flown by the port as phase 38(b), against `python
+# tools/heading_eval.py --package jax --scenario control --backend distilled
+# --interpret --checkpoint results/control_torch_stepstart/policy_checkpoint.pkl
+# --repeats 5 --success`: keys -38.3857, -47.3185, -43.7898, -37.9814,
+# -46.7174 (mean -42.8385, the largest distance from it 11.34%, so the limit
+# is 29% by phase 19's rule), 15,219 targets reached and 3,493 episodes
+# failed in all (success share 0.8133).
+PORT_STEPSTART_CKPT = os.path.join(REPO, "results", "control_torch_stepstart",
+                                   "policy_checkpoint.pkl")
+STEPSTART_FLY = {
+    "": ("control", "distilled",
+         (-38.38566589355469, -47.318485260009766, -43.78975296020508, -37.981407165527344,
+          -46.71739196777344), -42.838540649414064, 15219 / (15219 + 3493), 0.29),
+}
 
 
-def phase_fly_control_port_trained(table, n=1000, steps=2500, phase=38):
-    """results/control_torch/policy_checkpoint.pkl flown by the port's
-    F16SimRunner.eval, each part of CONTROL_TORCH_FLY on its scenario and
-    backend: (a) the portable step, nlplant_grouped exactly twice per step;
-    (b) the fused step, env_step exactly once per step; each reward within
-    its limit of the JAX package's eval."""
+def phase_fly_control_port_trained(table, fly=CONTROL_TORCH_FLY, ckpt=PORT_CONTROL_CKPT,
+                                   n=1000, steps=2500, phase=38,
+                                   key="launches_control_port_trained"):
+    """A port-trained control policy (by default results/control_torch's)
+    flown by the port's F16SimRunner.eval, each part of `fly` on its
+    scenario and backend: the portable step on "pallas" (phase 38(a)),
+    nlplant_grouped exactly twice per step, or the fused step on
+    "distilled" (38(b), 39), env_step exactly once per step; each reward
+    within its limit of the JAX package's eval. Each success share is
+    logged beside those of the control policies flown before it."""
     import tempfile
     from neuralplane_tpu_torch.algorithms.rl_config import RLConfig
     from neuralplane_tpu_torch.envs import ControlEnv
     from neuralplane_tpu_torch.runner import F16SimRunner
-    for part, (scenario, backend, keys, ref, ref_share, limit) in CONTROL_TORCH_FLY.items():
+    run = os.path.basename(os.path.dirname(ckpt))
+    for part, (scenario, backend, keys, ref, ref_share, limit) in fly.items():
+        tag = f"phase {phase}" + (f"({part})" if part else "")
         env = ControlEnv(num_envs=n, config=scenario, aero_backend=backend, device="cuda")
-        fused = part == "b"
+        fused = backend == "distilled"
         if env.fused != fused:
-            raise Mismatch(f"phase {phase}({part}): env.fused is {env.fused}, want {fused}")
+            raise Mismatch(f"{tag}: env.fused is {env.fused}, want {fused}")
         with tempfile.TemporaryDirectory() as run_dir:
-            runner = F16SimRunner(env, RLConfig(), run_dir=run_dir, model_dir=PORT_CONTROL_CKPT)
+            runner = F16SimRunner(env, RLConfig(), run_dir=run_dir, model_dir=ckpt)
             runner.close()
         runner.eval_env = counting = CountingEnv(env)
         zero_counts()
@@ -1609,23 +1641,27 @@ def phase_fly_control_port_trained(table, n=1000, steps=2500, phase=38):
         counts = read_counts()
         reached, failed = int(counting.reached), int(counting.failed)
         share = reached / max(1, reached + failed)
+        others = "; ".join(
+            f"{'phase 19 results/control' if k == 'control' else k} {v:.4f}"
+            for k, v in SUCCESS_SHARES.items() if k == "control" or k.startswith("phase"))
+        SUCCESS_SHARES[f"{tag} results/{run}"] = share
         rel = abs(value - ref) / abs(ref)
-        log(f"phase {phase}({part}) the port-trained control policy (results/control_torch) "
+        log(f"{tag} the port-trained control policy (results/{run}) "
             f"on ControlEnv({os.path.basename(scenario)}, {backend}) flown by the port: "
             f"eval_average_episode_rewards {value:.4f} (the JAX package on the CPU: "
             f"{ref:.4f}, keys {[round(k, 4) for k in keys]}, relative difference {rel:.4f}, "
             f"limit {limit}); targets reached {reached}, episodes failed {failed}, success "
-            f"share {share:.4f} (the JAX eval's {ref_share:.4f}; phase 19's for "
-            f"results/control: {SUCCESS_SHARES.get('control', float('nan')):.4f}); n={n}, "
+            f"share {share:.4f} (the JAX eval's {ref_share:.4f}; the control policies "
+            f"flown before it: {others}); n={n}, "
             f"{steps} steps in {wall:.3f} s ({wall * 1e3 / steps:.4f} ms/step), fused "
             f"{env.fused}, launches {counts}")
         want = {"env_step": steps} if fused else {"nlplant_grouped": 2 * steps}
-        check_counts(f"phase {phase}({part})", counts, want)
+        check_counts(tag, counts, want)
         if not rel <= limit:
-            raise Mismatch(f"phase {phase}({part}): the port's eval reward is {rel:.4f} away "
+            raise Mismatch(f"{tag}: the port's eval reward is {rel:.4f} away "
                            f"from the JAX package's (limit {limit})")
         name = "env_step" if fused else "nlplant_grouped"
-        table[name]["launches_control_port_trained"] = counts[name]
+        table[name][key] = counts[name]
 
 
 # One combat step with the xdot kernel against the same step with its plain
@@ -3343,6 +3379,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     phase_fly_control_port_trained(table)
     log(f"phase 38: {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    phase_fly_control_port_trained(table, STEPSTART_FLY, PORT_STEPSTART_CKPT, phase=39,
+                                   key="launches_control_stepstart")
+    log(f"phase 39: {time.perf_counter() - t0:.1f} s wall")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall in all")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

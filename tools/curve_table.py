@@ -16,7 +16,21 @@ reaches each of `--crossings`: the logged episode's share, or with
 `--window K` the mean share of the last K logged episodes. `--spans
 start:stop ...` then prints, for each run and span, the mean and standard
 deviation of the success share and of `average_episode_rewards` over the
-logged episodes with start <= step <= stop. Reads any `metrics.jsonl` whose lines carry
+logged episodes with start <= step <= stop.
+
+`--episode-rows START:STOP ...` (one range per metrics file, 1-based
+line numbers of its episode lines, the stop included) aligns the runs by
+episode instead of by step: each run's lines START..STOP become episodes
+1, 2, ... in file order, and `--rows`, `--upto`, the crossings and
+`--spans` then count episodes. A run whose step axis restarts on a
+resume (the JAX control run's rows 267 and 352 both log 809,000,000) or
+carries another offset cannot be aligned by step:
+
+  python tools/curve_table.py results/control/metrics.jsonl \
+      results/control_torch_stepstart/metrics.jsonl --labels JAX port \
+      --episode-rows 267:347 4:84 --rows 1:81:10 --window 10
+
+Reads any `metrics.jsonl` whose lines carry
 `step`, `episodes_reached_target`, `episodes_failed` and
 `average_episode_rewards` (both packages' runners write them). Imports
 neither JAX nor matplotlib.
@@ -43,6 +57,18 @@ def read_metrics(path: str) -> Dict[int, dict]:
                 rec = json.loads(line)
                 out[int(rec["step"])] = rec
     return out
+
+
+def read_episode_rows(path: str, start: int, stop: int) -> Dict[int, dict]:
+    """Episode k (from 1) -> the file's episode line start - 1 + k, for the
+    1-based episode lines start..stop in file order (eval lines skipped)."""
+    with open(path, encoding="utf-8") as f:
+        recs = [rec for rec in map(json.loads, filter(str.strip, f))
+                if "average_episode_rewards" in rec]
+    if not 1 <= start <= stop <= len(recs):
+        raise SystemExit(f"curve_table: {path} has {len(recs)} episode lines, "
+                         f"not {start}:{stop}")
+    return {k: rec for k, rec in enumerate(recs[start - 1:stop], 1)}
 
 
 def success(rec: dict) -> float:
@@ -86,10 +112,11 @@ def cells(rec: Optional[dict]) -> List[str]:
 
 
 def table(runs: Sequence[Dict[int, dict]], labels: Sequence[str],
-          upto: Optional[int] = None, rows: Optional[Sequence[int]] = None) -> List[str]:
+          upto: Optional[int] = None, rows: Optional[Sequence[int]] = None,
+          unit: str = "env steps") -> List[str]:
     """The markdown lines of the side-by-side table."""
     upto = upto if upto is not None else min(max(r) for r in runs)
-    head = ["env steps"]
+    head = [unit]
     for lab in labels:
         head += [f"{lab} reached", f"{lab} failed", f"{lab} success", f"{lab} avg reward"]
     lines = ["| " + " | ".join(head) + " |", "|" + "---|" * len(head)]
@@ -117,7 +144,8 @@ def first_window_crossing(run: Dict[int, dict], share: float, window: int) -> Op
 
 
 def crossing_lines(runs: Sequence[Dict[int, dict]], labels: Sequence[str],
-                   shares: Sequence[float], window: int = 1) -> List[str]:
+                   shares: Sequence[float], window: int = 1,
+                   unit: str = "step") -> List[str]:
     what = ("first logged success share" if window == 1
             else f"first rolling {window}-episode success share")
     out = []
@@ -125,9 +153,9 @@ def crossing_lines(runs: Sequence[Dict[int, dict]], labels: Sequence[str],
         parts = []
         for share in shares:
             s = first_window_crossing(run, share, window)
-            parts.append(f">= {100 * share:g}% at {s:,}" if s is not None
-                         else f">= {100 * share:g}% not reached")
-        out.append(f"{lab}: {what} " + ", ".join(parts) + f" (last step {max(run):,})")
+            parts.append(f">= {100 * share:g}% at {'' if unit == 'step' else unit + ' '}{s:,}"
+                         if s is not None else f">= {100 * share:g}% not reached")
+        out.append(f"{lab}: {what} " + ", ".join(parts) + f" (last {unit} {max(run):,})")
     return out
 
 
@@ -174,17 +202,27 @@ def main(argv=None) -> int:
                     help="crossings of the mean share over this many logged episodes")
     ap.add_argument("--spans", nargs="+", default=None, metavar="START:STOP",
                     help="mean and sd of the success share and reward over these steps")
+    ap.add_argument("--episode-rows", nargs="+", default=None, metavar="START:STOP",
+                    help="one per file: align the runs by episode, lines START..STOP")
     args = ap.parse_args(argv)
     labels = args.labels or [f"run {i}" for i in range(len(args.metrics))]
     if len(labels) != len(args.metrics):
         raise SystemExit("curve_table: one label per metrics file")
-    runs = [read_metrics(p) for p in args.metrics]
+    if args.episode_rows is None:
+        runs, unit = [read_metrics(p) for p in args.metrics], "step"
+    elif len(args.episode_rows) != len(args.metrics):
+        raise SystemExit("curve_table: one --episode-rows range per metrics file")
+    else:
+        runs = [read_episode_rows(p, *(int(x) for x in tok.split(":")))
+                for p, tok in zip(args.metrics, args.episode_rows)]
+        unit = "episode"
     upto = int(args.upto) if args.upto is not None else None
     rows = parse_rows(args.rows) if args.rows else None
-    print("\n".join(table(runs, labels, upto, rows)))
+    print("\n".join(table(runs, labels, upto, rows,
+                          "env steps" if unit == "step" else unit)))
     if args.crossings:
         print()
-        print("\n".join(crossing_lines(runs, labels, args.crossings, args.window)))
+        print("\n".join(crossing_lines(runs, labels, args.crossings, args.window, unit)))
     if args.spans:
         print()
         print("\n".join(span_lines(runs, labels, args.spans)))

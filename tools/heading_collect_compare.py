@@ -34,6 +34,18 @@ scenario's config in both packages, e.g. `--set reuse_step_xdot=false`
 (the overload check at the post-step state, as before the JAX package's
 commit 77ade88).
 
+On "pallas", and on "distilled" outside the tracking scenario, the JAX
+side turns its step kernel's reset draws and sensor noise off (the TPU
+hardware PRNG has no interpret mode) and draws the same distributions
+from jax.random outside the kernel; the port keeps its own in-step draws
+(on the CPU the step's plain version draws from the env's generator).
+`--step-reset` adds, under `reset.step_reset`, the moments after one step
+from the all-done state with zero actions, every row reset inside the
+step (heading and control):
+
+  python tools/heading_collect_compare.py --scenario control --backend distilled \
+      --n 1000 --steps 1000 --step-reset
+
 `--update` then runs one PPO update on the collected batch in each package
 and adds its train infos (losses, grad norms, ratio) to the line.
 
@@ -79,6 +91,41 @@ def reset_stats(scenario, s, task_state, to_np) -> dict:
     for k in TARGETS[scenario]:
         out[k] = moments(to_np(getattr(task_state, k)))
     return out
+
+
+def step_reset_stats(scenario, state, to_np) -> dict:
+    """Moments of the altitude, speed and targets of a state after one step
+    from the all-done state."""
+    m = state.model
+    s = m.sf.T if hasattr(m, "sf") else m.s   # feature-major or agent-major
+    return reset_stats(scenario, s, state.task, to_np)
+
+
+def jax_step_reset(scenario, env, seed: int) -> dict:
+    """One step of the JAX env from its all-done state with zero actions:
+    every row reset inside the step; the moments after it."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    st = env.init_state(jax.random.PRNGKey(seed))
+    if env._task_kernel:
+        from neuralplane_tpu.models.f16 import to_fm
+        st = st.replace(model=to_fm(st.model))
+    st = jax.tree.map(jnp.array, st)   # step donates: one buffer per leaf
+    st, _ = env.step(st, jnp.zeros((env.n, env.num_actions), jnp.float32))
+    return step_reset_stats(scenario, st, np.asarray)
+
+
+def port_step_reset(scenario, env) -> dict:
+    """The same for the port's env, after its reset(seed) (on the fused
+    path the step's own reset draws)."""
+    import torch
+    from neuralplane_tpu_torch.models.f16 import to_fm
+    st = env.init_state()
+    if env.fused:
+        st = st.replace(model=to_fm(st.model))
+    st, _ = env.step(st, torch.zeros((env.n, env.num_actions), device=env.device))
+    return step_reset_stats(scenario, st, lambda t: t.cpu().numpy())
 
 
 def control_actor(path: str) -> dict:
@@ -139,13 +186,19 @@ def _run_jax(args, cfg_kw):
     else:
         env = ControlEnv(num_envs=args.n, config=config, aero_backend=args.backend,
                          **({"task": args.scenario} if args.set else {}))
-    if args.backend == "pallas" and hasattr(env.config, "kernel_reset_draws"):
+    if hasattr(env.config, "kernel_reset_draws") and (
+            args.backend == "pallas"
+            or (args.backend == "distilled" and args.scenario != "tracking")):
+        # the TPU hardware PRNG has no interpret mode: the JAX side draws
+        # the same distributions from jax.random outside the kernel
         env.config = env.config.replace(kernel_obs_noise=False, kernel_reset_draws=False)
     run = F16SimRunner(env, RLConfig(**cfg_kw), run_dir=os.path.join(args.tmp, "jax"),
                        model_dir=getattr(args, "checkpoint", None))
     carry = run.init_carry(jax.random.PRNGKey(args.seed))
     st = carry.env_state.env if args.scenario == "tracking" else carry.env_state
     stats = reset_stats(args.scenario, st.model.s, st.task, np.asarray)
+    if getattr(args, "step_reset", False):
+        stats["step_reset"] = jax_step_reset(args.scenario, env, args.seed + 1)
     t0 = time.time()
     carry, batch, (_, counters) = run.collect(run.train_state.params, carry)
     masks, bad = np.asarray(batch.masks[1:]), np.asarray(batch.bad_masks[1:])
@@ -180,6 +233,8 @@ def run_port(args, cfg_kw, jax_params):
     carry = run.init_carry(args.seed)
     st = carry.env_state.env if args.scenario == "tracking" else carry.env_state
     stats = reset_stats(args.scenario, st.model.s, st.task, lambda t: t.numpy())
+    if getattr(args, "step_reset", False):
+        stats["step_reset"] = port_step_reset(args.scenario, env)
     t0 = time.time()
     carry, batch, (_, counters) = run.collect(carry)
     ends = float((batch.masks[1:] == 0).sum() + (batch.bad_masks[1:] == 0).sum())
@@ -210,6 +265,9 @@ def main(argv=None) -> int:
                     "under `update` (the port's minibatches come from its own generator)")
     ap.add_argument("--checkpoint", default=None,
                     help="a JAX pickle whose actor both packages collect with")
+    ap.add_argument("--step-reset", action="store_true",
+                    help="also the moments after one step from the all-done state, "
+                    "every row reset inside the step (under reset.step_reset)")
     ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                     help="override a key of the heading scenario's config")
     args = ap.parse_args(argv)

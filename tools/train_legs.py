@@ -39,6 +39,8 @@ numbers its episodes from 0 again, so its eval episodes (every
 `--eval-interval`) count from the leg's start.
 
 `--resume PREV` continues from a previous leg's `<PREV>/state_latest.pt`
+(or a finished run's merged directory, which has no `leg.json`: its
+`metrics.jsonl`'s last episode line gives the steps and wall seconds)
 (`--model-dir`; policy, Adam, update count and generator) with the step
 budget reduced by the steps done, and shifts this leg's `step` and `wall_s`
 by the previous legs' totals, so the legs' `metrics.jsonl` files
@@ -103,6 +105,21 @@ def copy_atomic(src: str, dst: str) -> None:
     os.replace(dst + ".tmp", dst)
 
 
+def resumed_totals(resume: str) -> tuple:
+    """(steps, wall seconds) done before a leg that resumes from `resume`: a
+    leg's directory (its `leg.json`), or a finished run's merged directory
+    (`metrics.jsonl` and `state_latest.pt`, as results/control_torch), whose
+    last episode line holds them."""
+    leg_json = os.path.join(resume, "leg.json")
+    if os.path.exists(leg_json):
+        with open(leg_json, encoding="utf-8") as f:
+            prev = json.load(f)
+        return prev["steps"], prev["wall_s"]
+    with open(os.path.join(resume, "metrics.jsonl"), encoding="utf-8") as f:
+        last = [rec for rec in map(json.loads, filter(str.strip, f)) if is_episode_line(rec)][-1]
+    return last["step"], last["wall_s"]
+
+
 def run_leg(out: str, train_argv: list, budget_s: float, stop_success: float,
             resume: str = None, poll_s: float = 1.0) -> dict:
     if _strip_arg(train_argv, "--log-interval")[1] != "1":
@@ -115,9 +132,7 @@ def run_leg(out: str, train_argv: list, budget_s: float, stop_success: float,
     total = int(float(total))
     done_steps, done_wall = 0, 0.0
     if resume is not None:
-        with open(os.path.join(resume, "leg.json"), encoding="utf-8") as f:
-            prev = json.load(f)
-        done_steps, done_wall = prev["steps"], prev["wall_s"]
+        done_steps, done_wall = resumed_totals(resume)
         argv = _strip_arg(argv, "--model-dir")[0] + [
             "--model-dir", os.path.join(resume, "state_latest.pt")]
     if done_steps >= total:
@@ -270,6 +285,7 @@ def profile_run(state_path: str, train_argv: list) -> None:
     checkpoint of it: one collect, then 20 profiled collect steps and one
     profiled update epoch."""
     import tempfile
+    import torch
     from chip_smoke import profile_training, timed_runner
     from neuralplane_tpu_torch.scripts.train import args_to_config, get_parser, make_env
     args = get_parser().parse_args(train_argv)
@@ -283,6 +299,9 @@ def profile_run(state_path: str, train_argv: list) -> None:
                   f"{runner.times['collect'][0]:.3f} s, launches "
                   f"{runner.collect_launches[0]}", flush=True)
             profile_training(runner, phase="profile")
+            if torch.cuda.is_available():
+                print(f"[train_legs] profile: peak device memory "
+                      f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB", flush=True)
         finally:
             runner.close()
 
