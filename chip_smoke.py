@@ -151,13 +151,21 @@ Phases, each reported on its own line:
      3000 envs x buffer 3000) flown as 38(b), against the JAX package's eval
      of the same pickle: 2500 env_step launches, the success share logged
      beside phase 19's and 38(b)'s.
+ 40. the port's last control leg (results/control_torch_final: phase 39's
+     run resumed for the JAX run's last 161 episodes, trained on the card
+     to the committed control policy's 508 updates): (a) flown as 39, 2500
+     env_step launches, the success share beside phase 19's and 39's; (b)
+     as the frozen low level under the JAX-trained tracking policy
+     (results/tracking) at 1000 envs x 50 high-level steps, 5000
+     nlplant_distilled launches, against the JAX package's eval over the
+     same low level and logged beside phase 18's.
 
 The launch counters are set to 0 just before phases 6, 7, 12, 13, 14, 15,
-16, 35, 17, 18, 37, each eval of 19, 38 and 39, each timed run of 20 and 23, the
+16, 35, 17, 18, 37, each eval of 19, 38, 39 and 40, each timed run of 20 and 23, the
 runs of 21, 24 and 25, the evals of 22 and 26, each render of 29, each run
 of 32, each rank's runs in 33, each row of 34(b-d) and each probe run of 36,
 and read just after; a kernel of the path that did not launch, or one that
-launched off its path in 17-26, 29 and 32-39, fails the run. Any
+launched off its path in 17-26, 29 and 32-40, fails the run. Any
 mismatch, non-finite value or failed check exits non-zero. The
 second-to-last line is the kernel table as JSON, the last line the device
 record.
@@ -1288,13 +1296,13 @@ def check_counts(what: str, counts: dict, expected: dict) -> None:
         raise Mismatch(f"{what}: kernel launches {counts}, want {want}")
 
 
-def planning_env(n: int, backend: str = "distilled"):
-    """PlanningEnv("tracking", backend) over results/control's actor, on
-    the card."""
+def planning_env(n: int, backend: str = "distilled", low_level_ckpt: str = CONTROL_CKPT):
+    """PlanningEnv("tracking", backend) over a frozen control actor (by
+    default results/control's), on the card."""
     from neuralplane_tpu_torch.envs import PlanningEnv
     from neuralplane_tpu_torch.envs.planning import load_low_level_ckpt
     return PlanningEnv(num_envs=n, config="tracking", aero_backend=backend,
-                       low_level_params=load_low_level_ckpt(CONTROL_CKPT), device="cuda")
+                       low_level_params=load_low_level_ckpt(low_level_ckpt), device="cuda")
 
 
 def phase_planning_train(table, phase=17):
@@ -1425,19 +1433,24 @@ def planning_step_vs_plain(env, policy, warm: int = 5, phase: int = 18) -> None:
         raise Mismatch(f"planning step: flags differ on {max(flags):.2e} of rows")
 
 
+# the planning evals' rewards by phase, logged beside the later ones
+PLANNING_REWARDS = {}
+
+
 def fly_planning_policy(ckpt: str, want: float, limit: float, what: str, n: int,
-                        steps: int, phase: int):
+                        steps: int, phase, low_level_ckpt: str = CONTROL_CKPT):
     """A Planning-env policy (a JAX actor or TrainState pickle) flown by the
-    port over results/control's actor: F16SimRunner.eval on
-    PlanningEnv("tracking", "distilled") at n envs for `steps` high-level
-    steps, the counters set to 0 just before; its average episode reward
-    within `limit` (relative) of `want`, nlplant_distilled launched exactly
-    2 x inner x steps times and nothing else, the success share reached /
-    (reached + failed) logged. Returns (env, runner, launch counts)."""
+    port over a frozen control actor (by default results/control's):
+    F16SimRunner.eval on PlanningEnv("tracking", "distilled") at n envs for
+    `steps` high-level steps, the counters set to 0 just before; its
+    average episode reward within `limit` (relative) of `want`,
+    nlplant_distilled launched exactly 2 x inner x steps times and nothing
+    else, the success share reached / (reached + failed) logged. Returns
+    (env, runner, launch counts)."""
     import tempfile
     from neuralplane_tpu_torch.algorithms.rl_config import RLConfig
     from neuralplane_tpu_torch.runner import F16SimRunner
-    env = planning_env(n)
+    env = planning_env(n, low_level_ckpt=low_level_ckpt)
     with tempfile.TemporaryDirectory() as run_dir:
         runner = F16SimRunner(env, RLConfig(), run_dir=run_dir, model_dir=ckpt)
         runner.close()
@@ -1451,8 +1464,10 @@ def fly_planning_policy(ckpt: str, want: float, limit: float, what: str, n: int,
     inner = env.low_level_steps
     reached, failed = int(counting.reached), int(counting.failed)
     rel = abs(value - want) / abs(want)
+    PLANNING_REWARDS[phase] = value
+    low = os.path.relpath(os.path.dirname(low_level_ckpt), REPO)
     log(f"phase {phase} {what} flown by the port (PlanningEnv, distilled, low level "
-        f"results/control): eval_average_episode_rewards {value:.4f} (the JAX package on the "
+        f"{low}): eval_average_episode_rewards {value:.4f} (the JAX package on the "
         f"CPU: {want:.4f}, relative difference {rel:.4f}, limit {limit}); targets reached "
         f"{reached}, episodes failed {failed}, success share "
         f"{reached / max(1, reached + failed):.4f}; n={n}, {steps} high-level steps "
@@ -1606,6 +1621,59 @@ STEPSTART_FLY = {
          (-38.38566589355469, -47.318485260009766, -43.78975296020508, -37.981407165527344,
           -46.71739196777344), -42.838540649414064, 15219 / (15219 + 3493), 0.29),
 }
+
+
+# Phase 40: the port's last control leg (results/control_torch_final: the
+# step-start run resumed for the JAX run's rows 352-512, trained on the card
+# to the committed policy's 508 updates), flown (a) as phase 39, against
+# `python tools/heading_eval.py --package jax --scenario control --backend
+# distilled --interpret --checkpoint
+# results/control_torch_final/policy_checkpoint.pkl --repeats 5 --success`:
+# keys 2.1332, 5.1515, 1.3746, -2.4702, -7.4536 (mean -0.2529, 19,118 targets
+# reached and 3,292 episodes failed in all: success share 0.8531; the mean is
+# near 0, so phase 19's relative rule gives 71.18, a band of +-18.0 around it,
+# 2.5 times the largest key's distance of 7.20), and (b) as the frozen low
+# level under results/tracking's policy, as phase 18 flies it over
+# results/control's, against `python tools/heading_eval.py --package jax
+# --env-name Planning --scenario tracking --checkpoint
+# results/tracking/policy_checkpoint.pkl --low-level-ckpt
+# results/control_torch_final/policy_checkpoint.pkl --steps 50 --backend
+# distilled --interpret --repeats 5`: keys -240.6177, -240.8918, -238.4546,
+# -236.0062, -238.5772 (spread 1.22%, limit 4%). Each limit by phase 19's rule.
+PORT_FINAL_CKPT = os.path.join(REPO, "results", "control_torch_final",
+                               "policy_checkpoint.pkl")
+FINAL_FLY = {
+    "a": ("control", "distilled",
+          (2.1332414150238037, 5.151454925537109, 1.3745841979980469, -2.47023868560791,
+           -7.4535675048828125), -0.25290513038635254, 19118 / (19118 + 3292), 71.18),
+}
+JAX_TRACKING_OVER_FINAL_KEYS = (-240.61766052246094, -240.8917999267578, -238.45462036132812,
+                                -236.0062255859375, -238.57720947265625)
+JAX_TRACKING_OVER_FINAL_EVAL = -238.9095031738281
+TRACKING_OVER_FINAL_REL_LIMIT = 0.04
+
+
+def phase_final_control(table, n=1000, steps=50, phase=40):
+    """results/control_torch_final's actor (a) flown as phase 39 flies its
+    run's, 2500 env_step launches, and (b) as the frozen low level under
+    results/tracking's policy at n envs x `steps` high-level steps,
+    nlplant_distilled exactly 2 x 50 x `steps` times, against the JAX
+    package's eval over the same low level; (b) is logged beside phase 18's
+    flight over the committed low level."""
+    phase_fly_control_port_trained(table, FINAL_FLY, PORT_FINAL_CKPT, phase=phase,
+                                   key="launches_control_final")
+    _, _, counts = fly_planning_policy(
+        os.path.join(REPO, "results", "tracking", "policy_checkpoint.pkl"),
+        JAX_TRACKING_OVER_FINAL_EVAL, TRACKING_OVER_FINAL_REL_LIMIT,
+        f"JAX-trained tracking policy (JAX keys "
+        f"{[round(k, 4) for k in JAX_TRACKING_OVER_FINAL_KEYS]})", n, steps, f"{phase}(b)",
+        low_level_ckpt=PORT_FINAL_CKPT)
+    log(f"phase {phase}(b) beside phase 18 (the same policy over results/control): "
+        f"{PLANNING_REWARDS[f'{phase}(b)']:.4f} against {PLANNING_REWARDS.get(18, math.nan):.4f}"
+        f" on the card, the JAX package's {JAX_TRACKING_OVER_FINAL_EVAL:.4f} against "
+        f"{JAX_TRACKING_EVAL:.4f} on the CPU")
+    table["nlplant_distilled"]["launches_planning_final_low_level"] = \
+        counts["nlplant_distilled"]
 
 
 def phase_fly_control_port_trained(table, fly=CONTROL_TORCH_FLY, ckpt=PORT_CONTROL_CKPT,
@@ -3383,6 +3451,9 @@ def main(argv=None) -> int:
     phase_fly_control_port_trained(table, STEPSTART_FLY, PORT_STEPSTART_CKPT, phase=39,
                                    key="launches_control_stepstart")
     log(f"phase 39: {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    phase_final_control(table)
+    log(f"phase 40: {time.perf_counter() - t0:.1f} s wall")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall in all")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

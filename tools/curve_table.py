@@ -30,6 +30,17 @@ carries another offset cannot be aligned by step:
       results/control_torch_stepstart/metrics.jsonl --labels JAX port \
       --episode-rows 267:347 4:84 --rows 1:81:10 --window 10
 
+`--terms` adds the shaped term of the reward per episode end beside each
+run's average: a control or heading episode's reward is the shaped
+(posture or heading) term plus the event term, +200 per target reached and
+-200 per episode failed, and the episode ends are reached + failed, so
+the shaped term per end is `average_episode_rewards` - 200 x (2 s - 1)
+(`tools/heading_collect_compare.py --reward-terms` checks this identity
+on a collect of each package). The spans then give its mean and sd too,
+the episode ends per rollout, and with `--rollout N` (agent-steps per
+logged episode, e.g. 9e6 for 3000 envs x 3000 steps) the shaped term per
+agent-step, the shaped sum over the rollout's steps: shaped/end x ends / N.
+
 Reads any `metrics.jsonl` whose lines carry
 `step`, `episodes_reached_target`, `episodes_failed` and
 `average_episode_rewards` (both packages' runners write them). Imports
@@ -46,6 +57,7 @@ from typing import Dict, List, Optional, Sequence
 # results/heading/REPORT.md's rows, then every 6e7 after its last
 REPORT_ROWS = [3_000_000 + 60_000_000 * k for k in range(9)] + [516_000_000]
 ROW_STEP = 60_000_000
+EVENT_REWARD = 200.0   # rewards.event_driven_reward's size
 
 
 def read_metrics(path: str) -> Dict[int, dict]:
@@ -76,6 +88,14 @@ def success(rec: dict) -> float:
     return reached / (reached + failed) if reached + failed else 0.0
 
 
+def shaped_per_end(rec: dict) -> float:
+    """The shaped term of the reward per episode end: the average episode
+    reward less the event term's 200 x (reached - failed) / (reached + failed)."""
+    reached, failed = rec["episodes_reached_target"], rec["episodes_failed"]
+    return rec["average_episode_rewards"] - EVENT_REWARD * (2 * success(rec) - 1) \
+        if reached + failed else rec["average_episode_rewards"]
+
+
 def parse_rows(tokens: Sequence[str]) -> List[int]:
     """`--rows` tokens: a step, or start:stop:step with the stop included."""
     steps = []
@@ -104,26 +124,28 @@ def row_steps(upto: int, rows: Optional[Sequence[int]] = None) -> List[int]:
     return steps
 
 
-def cells(rec: Optional[dict]) -> List[str]:
+def cells(rec: Optional[dict], terms: bool = False) -> List[str]:
     if rec is None:
-        return ["-"] * 4
-    return [f"{rec['episodes_reached_target']:.0f}", f"{rec['episodes_failed']:.0f}",
-            f"{100 * success(rec):.1f}%", f"{rec['average_episode_rewards']:.1f}"]
+        return ["-"] * (5 if terms else 4)
+    out = [f"{rec['episodes_reached_target']:.0f}", f"{rec['episodes_failed']:.0f}",
+           f"{100 * success(rec):.1f}%", f"{rec['average_episode_rewards']:.1f}"]
+    return out + [f"{shaped_per_end(rec):.1f}"] if terms else out
 
 
 def table(runs: Sequence[Dict[int, dict]], labels: Sequence[str],
           upto: Optional[int] = None, rows: Optional[Sequence[int]] = None,
-          unit: str = "env steps") -> List[str]:
+          unit: str = "env steps", terms: bool = False) -> List[str]:
     """The markdown lines of the side-by-side table."""
     upto = upto if upto is not None else min(max(r) for r in runs)
     head = [unit]
     for lab in labels:
         head += [f"{lab} reached", f"{lab} failed", f"{lab} success", f"{lab} avg reward"]
+        head += [f"{lab} shaped/end"] if terms else []
     lines = ["| " + " | ".join(head) + " |", "|" + "---|" * len(head)]
     for s in row_steps(upto, rows):
         row = [f"{s:,}"]
         for r in runs:
-            row += cells(r.get(s))
+            row += cells(r.get(s), terms)
         lines.append("| " + " | ".join(row) + " |")
     return lines
 
@@ -167,16 +189,21 @@ def span_stats(run: Dict[int, dict], start: int, stop: int) -> Optional[dict]:
         return None
     shares = [success(r) for r in recs]
     rewards = [r["average_episode_rewards"] for r in recs]
+    shaped = [shaped_per_end(r) for r in recs]
+    ends = [r["episodes_reached_target"] + r["episodes_failed"] for r in recs]
 
     def sd(xs):
         return statistics.stdev(xs) if len(xs) > 1 else 0.0
     return {"episodes": len(recs), "success": statistics.fmean(shares),
             "success_sd": sd(shares), "reward": statistics.fmean(rewards),
-            "reward_sd": sd(rewards)}
+            "reward_sd": sd(rewards), "shaped": statistics.fmean(shaped),
+            "shaped_sd": sd(shaped), "ends": statistics.fmean(ends),
+            "shaped_sum": statistics.fmean(s * e for s, e in zip(shaped, ends))}
 
 
 def span_lines(runs: Sequence[Dict[int, dict]], labels: Sequence[str],
-               spans: Sequence[str]) -> List[str]:
+               spans: Sequence[str], terms: bool = False,
+               rollout: Optional[float] = None) -> List[str]:
     out = []
     for tok in spans:
         start, stop = (int(float(x)) for x in tok.split(":"))
@@ -186,7 +213,11 @@ def span_lines(runs: Sequence[Dict[int, dict]], labels: Sequence[str],
             out.append(f"{head} no logged episode" if st is None else
                        f"{head} {st['episodes']} episodes, success {st['success']:.4f} "
                        f"(sd {st['success_sd']:.4f}), reward {st['reward']:.2f} "
-                       f"(sd {st['reward_sd']:.2f})")
+                       f"(sd {st['reward_sd']:.2f})"
+                       + (f", shaped/end {st['shaped']:.2f} (sd {st['shaped_sd']:.2f}), "
+                          f"ends {st['ends']:.1f}" if terms else "")
+                       + (f", shaped/step {st['shaped_sum'] / rollout:.4f}"
+                          if terms and rollout else ""))
     return out
 
 
@@ -202,6 +233,11 @@ def main(argv=None) -> int:
                     help="crossings of the mean share over this many logged episodes")
     ap.add_argument("--spans", nargs="+", default=None, metavar="START:STOP",
                     help="mean and sd of the success share and reward over these steps")
+    ap.add_argument("--terms", action="store_true",
+                    help="add the reward's shaped term per episode end")
+    ap.add_argument("--rollout", type=float, default=None,
+                    help="with --terms: agent-steps per logged episode, for the "
+                    "spans' shaped term per agent-step")
     ap.add_argument("--episode-rows", nargs="+", default=None, metavar="START:STOP",
                     help="one per file: align the runs by episode, lines START..STOP")
     args = ap.parse_args(argv)
@@ -219,13 +255,13 @@ def main(argv=None) -> int:
     upto = int(args.upto) if args.upto is not None else None
     rows = parse_rows(args.rows) if args.rows else None
     print("\n".join(table(runs, labels, upto, rows,
-                          "env steps" if unit == "step" else unit)))
+                          "env steps" if unit == "step" else unit, args.terms)))
     if args.crossings:
         print()
         print("\n".join(crossing_lines(runs, labels, args.crossings, args.window, unit)))
     if args.spans:
         print()
-        print("\n".join(span_lines(runs, labels, args.spans)))
+        print("\n".join(span_lines(runs, labels, args.spans, args.terms, args.rollout)))
     return 0
 
 

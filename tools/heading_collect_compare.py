@@ -55,6 +55,21 @@ TrainState's actor), and the port takes the JAX runner's params as before.
 The collect then is the first episode after a restore, which starts every
 env from a fresh reset in both packages.
 
+`--reward-terms` splits each collect's reward sum into its two terms
+(heading and control; one agent per env): the event term, each package's
+own `rewards.event_driven_reward` on each step's done and bad flags (read
+back from the batch: masks[t + 1] = 1 - done, bad_masks[t + 1] = 1 - bad),
+and the shaped term, the rest (the posture or heading reward, minus a sum
+of squares: no step's share may be positive). It checks the identity that
+lets `tools/curve_table.py --terms` read the split from a `metrics.jsonl`
+alone: the event sum is 200 x (reached - failed) of the logged counters,
+the episode ends are reached + failed, so the shaped term per episode end
+is `average_episode_rewards` - 200 x (2 s - 1), s = reached / (reached +
+failed):
+
+  python tools/heading_collect_compare.py --scenario control --backend distilled \
+      --n 1000 --steps 1000 --reward-terms
+
 `--jax-root DIR` imports the JAX package from DIR instead, a checkout of
 another commit (e.g. the one the JAX heading run was made at), and
 `--package jax` runs the JAX side alone: the same collect from the same
@@ -142,6 +157,34 @@ def summary(counters: dict, rewards_sum: float, ends: float) -> dict:
     return out
 
 
+EVENT_REWARD = 200.0   # rewards.event_driven_reward's size, in both packages
+
+
+def reward_terms(rewards, masks, bad_masks, counters: dict, event_reward) -> dict:
+    """A collect's reward sum split into the event term (`event_reward` on
+    each step's done and bad flags) and the shaped term (the rest), as
+    float64 numpy sums; `identity` is true when the event sum and the
+    episode ends are what the logged counters imply, and no step's shaped
+    share is positive."""
+    import numpy as np
+    done, bad = masks[1:] == 0, bad_masks[1:] == 0
+    event = np.asarray(event_reward(done, bad), np.float64)
+    total = np.asarray(rewards, np.float64)
+    reached = float(counters["episodes_reached_target"])
+    failed = float(counters["episodes_failed"])
+    ends = float(np.asarray(done).sum() + np.asarray(bad).sum())
+    shaped = total - event
+    out = {"reward_sum": float(total.sum()), "event_sum": float(event.sum()),
+           "shaped_sum": float(shaped.sum()), "shaped_max": float(shaped.max()),
+           "ends": ends,
+           "event_from_counters": EVENT_REWARD * (reached - failed),
+           "shaped_per_end": float(shaped.sum()) / max(ends, 1.0),
+           "shaped_per_step": float(shaped.mean())}
+    out["identity"] = bool(out["event_sum"] == out["event_from_counters"]
+                           and ends == reached + failed and out["shaped_max"] <= 0.0)
+    return out
+
+
 def collect_config(args) -> dict:
     """The RLConfig keywords of the collect: the run's chunk length."""
     return dict(n_rollout_threads=args.n, buffer_size=args.steps, seed=args.seed,
@@ -205,6 +248,11 @@ def _run_jax(args, cfg_kw):
     ends = float((masks == 0).sum() + (bad == 0).sum())
     out = summary({k: np.asarray(v) for k, v in counters.items()},
                   float(np.asarray(batch.rewards).sum()), ends)
+    if getattr(args, "reward_terms", False):
+        from neuralplane_tpu.envs import rewards
+        out["reward_terms"] = reward_terms(
+            np.asarray(batch.rewards), np.asarray(batch.masks), np.asarray(batch.bad_masks),
+            out, rewards.event_driven_reward)
     # the collect's actor and critic, which the port's side starts from
     args.jax_params = jax.tree.map(np.asarray, run.train_state.params)
     if args.update:
@@ -240,6 +288,13 @@ def run_port(args, cfg_kw, jax_params):
     ends = float((batch.masks[1:] == 0).sum() + (batch.bad_masks[1:] == 0).sum())
     out = summary({k: v.numpy() for k, v in counters.items()},
                   float(batch.rewards.sum()), ends)
+    if getattr(args, "reward_terms", False):
+        import torch
+        from neuralplane_tpu_torch.envs import rewards
+        out["reward_terms"] = reward_terms(
+            batch.rewards.numpy(), batch.masks.numpy(), batch.bad_masks.numpy(), out,
+            lambda d, b: rewards.event_driven_reward(torch.from_numpy(d),
+                                                     torch.from_numpy(b)).numpy())
     if args.update:
         out["update"] = run.train(batch)
     run.close()
@@ -268,6 +323,9 @@ def main(argv=None) -> int:
     ap.add_argument("--step-reset", action="store_true",
                     help="also the moments after one step from the all-done state, "
                     "every row reset inside the step (under reset.step_reset)")
+    ap.add_argument("--reward-terms", action="store_true",
+                    help="split each collect's reward sum into the event and shaped terms "
+                    "(under collect.reward_terms)")
     ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                     help="override a key of the heading scenario's config")
     args = ap.parse_args(argv)

@@ -24,7 +24,9 @@ Restores the checkpoint (default results/heading/policy_checkpoint.pkl) into
 the package's F16SimRunner with the default RLConfig networks, on
 ControlEnv(scenario, model, aero_backend=backend) -- or, with --env-name
 Planning, on PlanningEnv(scenario, model) over the frozen low-level actor of
---low-level-ckpt, one step of which is `low_level_steps` control steps --
+--low-level-ckpt (a JAX run's whole-state pickle or an actor-only one, as
+`tools/train_legs.py --export-actor` writes), one step of which is
+`low_level_steps` control steps --
 at --n envs with the scenario's sensor noise, and prints one JSON line with
 `eval_average_episode_rewards` of `F16SimRunner.eval(steps)` for each of
 --repeats evals (each eval draws its env seed from the runner's key or
@@ -100,8 +102,9 @@ def jax_evals(args):
         import pickle
         from neuralplane_tpu.envs import PlanningEnv
         os.environ["NEURALPLANE_AERO_BACKEND"] = args.backend
-        with open(args.low_level_ckpt, "rb") as f:
-            low = pickle.load(f)["train_state"].params["actor"]
+        with open(args.low_level_ckpt, "rb") as f:   # a whole TrainState or an actor
+            low = pickle.load(f)
+        low = low["train_state"].params["actor"] if "train_state" in low else low
         env = PlanningEnv(num_envs=args.n, config=args.scenario, model=args.model,
                           low_level_params=low)
     else:
