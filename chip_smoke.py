@@ -158,14 +158,21 @@ Phases, each reported on its own line:
      as the frozen low level under the JAX-trained tracking policy
      (results/tracking) at 1000 envs x 50 high-level steps, 5000
      nlplant_distilled launches, against the JAX package's eval over the
-     same low level and logged beside phase 18's.
+     same low level and logged beside phase 18's;
+ 41. the port's tracking run to 3e8 (results/tracking_torch_final: phase
+     37's run resumed for the JAX run's episodes 62-300, trained on the
+     card to the committed tracking policy's 24,000 updates) flown as 37,
+     1000 envs x 50 high-level steps, 5000 nlplant_distilled launches in
+     each part: (a) over results/control, (b) over results/control_torch_final
+     (the port's own hierarchy), each against the JAX package's eval of
+     the same pair, both logged beside phases 18, 37 and 40(b).
 
 The launch counters are set to 0 just before phases 6, 7, 12, 13, 14, 15,
-16, 35, 17, 18, 37, each eval of 19, 38, 39 and 40, each timed run of 20 and 23, the
+16, 35, 17, 18, 37, each eval of 19, 38, 39, 40 and 41, each timed run of 20 and 23, the
 runs of 21, 24 and 25, the evals of 22 and 26, each render of 29, each run
 of 32, each rank's runs in 33, each row of 34(b-d) and each probe run of 36,
 and read just after; a kernel of the path that did not launch, or one that
-launched off its path in 17-26, 29 and 32-40, fails the run. Any
+launched off its path in 17-26, 29 and 32-41, fails the run. Any
 mismatch, non-finite value or failed check exits non-zero. The
 second-to-last line is the kernel table as JSON, the last line the device
 record.
@@ -1433,8 +1440,9 @@ def planning_step_vs_plain(env, policy, warm: int = 5, phase: int = 18) -> None:
         raise Mismatch(f"planning step: flags differ on {max(flags):.2e} of rows")
 
 
-# the planning evals' rewards by phase, logged beside the later ones
+# the planning evals' rewards and success shares by phase, logged beside the later ones
 PLANNING_REWARDS = {}
+PLANNING_SHARES = {}
 
 
 def fly_planning_policy(ckpt: str, want: float, limit: float, what: str, n: int,
@@ -1465,6 +1473,7 @@ def fly_planning_policy(ckpt: str, want: float, limit: float, what: str, n: int,
     reached, failed = int(counting.reached), int(counting.failed)
     rel = abs(value - want) / abs(want)
     PLANNING_REWARDS[phase] = value
+    PLANNING_SHARES[phase] = reached / max(1, reached + failed)
     low = os.path.relpath(os.path.dirname(low_level_ckpt), REPO)
     log(f"phase {phase} {what} flown by the port (PlanningEnv, distilled, low level "
         f"{low}): eval_average_episode_rewards {value:.4f} (the JAX package on the "
@@ -1674,6 +1683,53 @@ def phase_final_control(table, n=1000, steps=50, phase=40):
         f"{JAX_TRACKING_EVAL:.4f} on the CPU")
     table["nlplant_distilled"]["launches_planning_final_low_level"] = \
         counts["nlplant_distilled"]
+
+
+# Phase 41: the port's tracking run to 3e8 (results/tracking_torch_final:
+# results/tracking_torch resumed on the card for the JAX run's episodes
+# 62-300, to the committed policy's 24,000 updates) flown as phase 37, (a)
+# over results/control, against `python tools/heading_eval.py --package jax
+# --env-name Planning --scenario tracking --checkpoint
+# results/tracking_torch_final/policy_checkpoint.pkl --low-level-ckpt
+# results/control/policy_checkpoint.pkl --steps 50 --backend distilled
+# --interpret --repeats 5`: keys -194.1692, -199.2788, -192.7157, -195.5954,
+# -190.2982 (spread 2.50%, limit 7%), and (b) over results/control_torch_final
+# (the port's own control actor: a hierarchy trained wholly on the card),
+# against the same eval with that --low-level-ckpt: keys -233.8047,
+# -232.7276, -231.2134, -232.5003, -233.1247 (spread 0.63%, limit 2%). Each
+# limit by phase 37's rule.
+PORT_TRACKING_FINAL_CKPT = os.path.join(REPO, "results", "tracking_torch_final",
+                                        "policy_checkpoint.pkl")
+TRACKING_FINAL_FLY = {
+    "a": (CONTROL_CKPT, (-194.1692352294922, -199.27879333496094, -192.7156982421875,
+                         -195.5953826904297, -190.29815673828125), -194.4114532470703, 0.07),
+    "b": (PORT_FINAL_CKPT, (-233.8046875, -232.72763061523438, -231.2134246826172,
+                            -232.50033569335938, -233.1246795654297), -232.6741516113281, 0.02),
+}
+
+
+def phase_tracking_final(table, n=1000, steps=50, phase=41):
+    """results/tracking_torch_final's actor flown by the port as phase 37
+    flies results/tracking_torch's, over each low level of
+    TRACKING_FINAL_FLY, each part nlplant_distilled exactly 2 x 50 x `steps`
+    times and within its limit of the JAX package's eval of the same pair;
+    then each part's reward and success share beside phases 18, 37 and
+    40(b)."""
+    for part, (low, keys, ref, limit) in TRACKING_FINAL_FLY.items():
+        _, _, counts = fly_planning_policy(
+            PORT_TRACKING_FINAL_CKPT, ref, limit,
+            f"the port's tracking policy at 3e8 (results/tracking_torch_final; JAX keys "
+            f"{[round(k, 4) for k in keys]})", n, steps, f"{phase}({part})", low_level_ckpt=low)
+        table["nlplant_distilled"][f"launches_planning_tracking_final_{part}"] = \
+            counts["nlplant_distilled"]
+    beside = {18: "results/tracking over results/control",
+              37: "results/tracking_torch over results/control",
+              "40(b)": "results/tracking over results/control_torch_final",
+              f"{phase}(a)": "results/tracking_torch_final over results/control",
+              f"{phase}(b)": "results/tracking_torch_final over results/control_torch_final"}
+    log(f"phase {phase} beside the planning flights before it (reward, success share): "
+        + "; ".join(f"{k} {what} {PLANNING_REWARDS[k]:.4f}, {PLANNING_SHARES[k]:.4f}"
+                    for k, what in beside.items() if k in PLANNING_REWARDS))
 
 
 def phase_fly_control_port_trained(table, fly=CONTROL_TORCH_FLY, ckpt=PORT_CONTROL_CKPT,
@@ -3454,6 +3510,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     phase_final_control(table)
     log(f"phase 40: {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    phase_tracking_final(table)
+    log(f"phase 41: {time.perf_counter() - t0:.1f} s wall")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall in all")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

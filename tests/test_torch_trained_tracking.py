@@ -11,8 +11,10 @@
   10`): -203.19, -184.09, -196.14, -189.90, -190.30, mean -192.73, the
   largest distance from the mean 10.46; REWARD_TOL is 2.5 times that.
 - `results/tracking_torch/policy_checkpoint.pkl` (the port-trained high
-  level, written by `tools/train_legs.py --export-actor`) and a fresh port
-  actor graft into the JAX F16SimRunner on PlanningEnv("tracking"): every
+  level at 6.1e7, written by `tools/train_legs.py --export-actor`),
+  `results/tracking_torch_final/policy_checkpoint.pkl` (the same run
+  trained on to 3e8) and a fresh port actor graft into the JAX
+  F16SimRunner on PlanningEnv("tracking"): every
   leaf shape of the JAX init params, and the same deterministic actions
   and GRU states on seeded observations within 1e-5.
 - `results/tracking_torch/metrics.jsonl` carries the JAX run's keys, one
@@ -48,6 +50,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_RUN = os.path.join(REPO, "results", "tracking")
 PORT_RUN = os.path.join(REPO, "results", "tracking_torch")
 PORT_CKPT = os.path.join(PORT_RUN, "policy_checkpoint.pkl")
+FINAL_CKPT = os.path.join(REPO, "results", "tracking_torch_final", "policy_checkpoint.pkl")
 ACT_TOL = 1e-5
 REWARD_TOL = 2.5 * 10.46
 JAX_ROWS = "1e6:6.1e7:1e7"
@@ -97,18 +100,19 @@ def test_first_collect_tracks_the_jax_package(tmp_path):
 
 
 def port_actor(source: str, tmp_path) -> torch.nn.Module:
-    """A fresh port actor, or the port-trained high level read back from
-    the committed pickle by the port's runner."""
+    """A fresh port actor, or a port-trained high level read back from its
+    committed pickle by the port's runner."""
     env = PlanningEnv(num_envs=2, device="cpu")
     if source == "fresh":
         return PPOPolicy(RLConfig(seed=7), env.num_observation, env.num_actions,
                          device="cpu").actor
-    run = F16SimRunner(env, RLConfig(), run_dir=str(tmp_path / "port"), model_dir=PORT_CKPT)
+    ckpt = {"port_run": PORT_CKPT, "final_run": FINAL_CKPT}[source]
+    run = F16SimRunner(env, RLConfig(), run_dir=str(tmp_path / "port"), model_dir=ckpt)
     run.close()
     return run.policy.actor
 
 
-@pytest.mark.parametrize("source", ["fresh", "port_run"])
+@pytest.mark.parametrize("source", ["fresh", "port_run", "final_run"])
 def test_port_actor_grafts_into_the_jax_planning_runner(tmp_path, source):
     actor = port_actor(source, tmp_path)
     path = str(tmp_path / "actor.pkl")

@@ -16,7 +16,8 @@ reaches each of `--crossings`: the logged episode's share, or with
 `--window K` the mean share of the last K logged episodes. `--spans
 start:stop ...` then prints, for each run and span, the mean and standard
 deviation of the success share and of `average_episode_rewards` over the
-logged episodes with start <= step <= stop.
+logged episodes with start <= step <= stop (with `--counts` also the mean
+targets reached and episodes failed per logged episode).
 
 `--episode-rows START:STOP ...` (one range per metrics file, 1-based
 line numbers of its episode lines, the stop included) aligns the runs by
@@ -29,6 +30,23 @@ carries another offset cannot be aligned by step:
   python tools/curve_table.py results/control/metrics.jsonl \
       results/control_torch_stepstart/metrics.jsonl --labels JAX port \
       --episode-rows 267:347 4:84 --rows 1:81:10 --window 10
+
+`--first-episode N` numbers the aligned episodes from N instead of 1 (a
+run resumed at its episode 62 aligned with the JAX run's rows 62..300:
+`--episode-rows 62:300 1:239 --first-episode 62`). `--reward-crossings
+LEVEL ...` prints, for each run, the first step or episode at which the
+mean `average_episode_rewards` of the last `--window` logged episodes
+reaches each level (the tracking runs' rule).
+
+A metrics argument may join several files with commas, read in order (a
+run and its continuation: `results/tracking_torch/metrics.jsonl,
+results/tracking_torch_final/metrics.jsonl`). `--continuity K ...`
+applies the tracking runs' resume rule after each K, the last run against
+the first (`continuity_lines`; `--window` episodes before the resume, the
+third after it judged).
+
+`--keys KEY ...` adds a column per run for each logged key (e.g.
+`policy_entropy_loss`, the entropy term).
 
 `--terms` adds the shaped term of the reward per episode end beside each
 run's average: a control or heading episode's reward is the shaped
@@ -60,27 +78,28 @@ ROW_STEP = 60_000_000
 EVENT_REWARD = 200.0   # rewards.event_driven_reward's size
 
 
+def read_lines(path: str) -> List[dict]:
+    """The records of `path`, or of several files joined by commas, in order."""
+    recs = []
+    for part in path.split(","):
+        with open(part, encoding="utf-8") as f:
+            recs += [json.loads(line) for line in f if line.strip()]
+    return recs
+
+
 def read_metrics(path: str) -> Dict[int, dict]:
     """step -> record; a later line for the same step replaces an earlier."""
-    out = {}
-    with open(path, encoding="utf-8") as f:
-        for line in f:
-            if line.strip():
-                rec = json.loads(line)
-                out[int(rec["step"])] = rec
-    return out
+    return {int(rec["step"]): rec for rec in read_lines(path)}
 
 
-def read_episode_rows(path: str, start: int, stop: int) -> Dict[int, dict]:
-    """Episode k (from 1) -> the file's episode line start - 1 + k, for the
-    1-based episode lines start..stop in file order (eval lines skipped)."""
-    with open(path, encoding="utf-8") as f:
-        recs = [rec for rec in map(json.loads, filter(str.strip, f))
-                if "average_episode_rewards" in rec]
+def read_episode_rows(path: str, start: int, stop: int, first: int = 1) -> Dict[int, dict]:
+    """Episode first - 1 + k -> the file's episode line start - 1 + k, for
+    the 1-based episode lines start..stop in file order (eval lines skipped)."""
+    recs = [rec for rec in read_lines(path) if "average_episode_rewards" in rec]
     if not 1 <= start <= stop <= len(recs):
         raise SystemExit(f"curve_table: {path} has {len(recs)} episode lines, "
                          f"not {start}:{stop}")
-    return {k: rec for k, rec in enumerate(recs[start - 1:stop], 1)}
+    return {k: rec for k, rec in enumerate(recs[start - 1:stop], first)}
 
 
 def success(rec: dict) -> float:
@@ -124,60 +143,107 @@ def row_steps(upto: int, rows: Optional[Sequence[int]] = None) -> List[int]:
     return steps
 
 
-def cells(rec: Optional[dict], terms: bool = False) -> List[str]:
+def cells(rec: Optional[dict], terms: bool = False, keys: Sequence[str] = ()) -> List[str]:
     if rec is None:
-        return ["-"] * (5 if terms else 4)
+        return ["-"] * ((5 if terms else 4) + len(keys))
     out = [f"{rec['episodes_reached_target']:.0f}", f"{rec['episodes_failed']:.0f}",
            f"{100 * success(rec):.1f}%", f"{rec['average_episode_rewards']:.1f}"]
-    return out + [f"{shaped_per_end(rec):.1f}"] if terms else out
+    out += [f"{shaped_per_end(rec):.1f}"] if terms else []
+    return out + [f"{rec[k]:.4g}" for k in keys]
 
 
 def table(runs: Sequence[Dict[int, dict]], labels: Sequence[str],
           upto: Optional[int] = None, rows: Optional[Sequence[int]] = None,
-          unit: str = "env steps", terms: bool = False) -> List[str]:
-    """The markdown lines of the side-by-side table."""
+          unit: str = "env steps", terms: bool = False, keys: Sequence[str] = ()) -> List[str]:
+    """The markdown lines of the side-by-side table; `keys` adds a column
+    per run for each of these logged keys."""
     upto = upto if upto is not None else min(max(r) for r in runs)
     head = [unit]
     for lab in labels:
         head += [f"{lab} reached", f"{lab} failed", f"{lab} success", f"{lab} avg reward"]
         head += [f"{lab} shaped/end"] if terms else []
+        head += [f"{lab} {k}" for k in keys]
     lines = ["| " + " | ".join(head) + " |", "|" + "---|" * len(head)]
     for s in row_steps(upto, rows):
         row = [f"{s:,}"]
         for r in runs:
-            row += cells(r.get(s), terms)
+            row += cells(r.get(s), terms, keys)
         lines.append("| " + " | ".join(row) + " |")
     return lines
+
+
+def reward(rec: dict) -> float:
+    return rec["average_episode_rewards"]
 
 
 def first_crossing(run: Dict[int, dict], share: float) -> Optional[int]:
     return first_window_crossing(run, share, 1)
 
 
-def first_window_crossing(run: Dict[int, dict], share: float, window: int) -> Optional[int]:
-    """The step of the first logged episode at which the mean success share
-    of it and the window - 1 logged episodes before it reaches `share`."""
+def first_window_crossing(run: Dict[int, dict], level: float, window: int,
+                          value=success) -> Optional[int]:
+    """The step of the first logged episode at which the mean `value` (the
+    success share, or `reward`) of it and the window - 1 logged episodes
+    before it reaches `level`."""
     steps = sorted(run)
-    shares = [success(run[s]) for s in steps]
+    values = [value(run[s]) for s in steps]
     for i in range(window - 1, len(steps)):
-        if sum(shares[i - window + 1:i + 1]) / window >= share:
+        if sum(values[i - window + 1:i + 1]) / window >= level:
             return steps[i]
     return None
 
 
 def crossing_lines(runs: Sequence[Dict[int, dict]], labels: Sequence[str],
-                   shares: Sequence[float], window: int = 1,
-                   unit: str = "step") -> List[str]:
-    what = ("first logged success share" if window == 1
-            else f"first rolling {window}-episode success share")
+                   levels: Sequence[float], window: int = 1,
+                   unit: str = "step", value=success) -> List[str]:
+    name, mean = (("success share", "success share") if value is success
+                  else ("reward", "mean reward"))
+    what = f"first logged {name}" if window == 1 else f"first rolling {window}-episode {mean}"
     out = []
     for run, lab in zip(runs, labels):
         parts = []
-        for share in shares:
-            s = first_window_crossing(run, share, window)
-            parts.append(f">= {100 * share:g}% at {'' if unit == 'step' else unit + ' '}{s:,}"
-                         if s is not None else f">= {100 * share:g}% not reached")
+        for level in levels:
+            s = first_window_crossing(run, level, window, value)
+            tag = f"{100 * level:g}%" if value is success else f"{level:g}"
+            parts.append(f">= {tag} at {'' if unit == 'step' else unit + ' '}{s:,}"
+                         if s is not None else f">= {tag} not reached")
         out.append(f"{lab}: {what} " + ", ".join(parts) + f" (last {unit} {max(run):,})")
+    return out
+
+
+def continuity_lines(ref: Dict[int, dict], run: Dict[int, dict], resumes: Sequence[int],
+                     window: int = 10, after: int = 3, labels: Sequence[str] = ("ref", "run"),
+                     unit: str = "step") -> List[str]:
+    """The resume rule of the tracking runs: with K a resume's last logged
+    episode (or step), m and sd the mean and population standard deviation
+    of `run`'s rewards over the `window` logged episodes up to K, and d
+    `ref`'s own rise from its mean over the same episodes to its reward
+    `after` episodes past K, `run`'s reward there within m + d +- 3 sd, and
+    its targets reached within a factor of 1.5 of its mean over the window;
+    the first episode past K beside it."""
+    out = []
+    keys, rkeys = sorted(run), sorted(ref)
+    for k in resumes:
+        i, j = keys.index(k), rkeys.index(k)
+        span = [run[s] for s in keys[i - window + 1:i + 1]]
+        rew = [reward(r) for r in span]
+        m, sd = statistics.fmean(rew), statistics.pstdev(rew)
+        d = reward(ref[rkeys[j + after]]) - statistics.fmean(
+            reward(ref[s]) for s in rkeys[j - window + 1:j + 1])
+        reached = statistics.fmean(r["episodes_reached_target"] for r in span)
+        got, first = run[keys[i + after]], run[keys[i + 1]]
+        lo, hi = m + d - 3 * sd, m + d + 3 * sd
+        ok_r = lo <= got["average_episode_rewards"] <= hi
+        ok_n = reached / 1.5 <= got["episodes_reached_target"] <= reached * 1.5
+        out.append(
+            f"resume after {unit} {k:,}: {labels[1]} {keys[i - window + 1]:,}-{k:,} reward "
+            f"{m:.2f} (sd {sd:.2f}), reached {reached:.1f}; {labels[0]} rise to {unit} "
+            f"{keys[i + after]:,} {d:+.2f}; {labels[1]} {unit} {keys[i + after]:,} reward "
+            f"{got['average_episode_rewards']:.2f} in {lo:.2f} to {hi:.2f} "
+            f"({'holds' if ok_r else 'fails'}), reached {got['episodes_reached_target']:.0f} "
+            f"in {reached / 1.5:.1f} to {reached * 1.5:.1f} ({'holds' if ok_n else 'fails'}); "
+            f"first {unit} {keys[i + 1]:,}: reward {first['average_episode_rewards']:.2f}, "
+            f"reached {first['episodes_reached_target']:.0f}")
     return out
 
 
@@ -198,12 +264,14 @@ def span_stats(run: Dict[int, dict], start: int, stop: int) -> Optional[dict]:
             "success_sd": sd(shares), "reward": statistics.fmean(rewards),
             "reward_sd": sd(rewards), "shaped": statistics.fmean(shaped),
             "shaped_sd": sd(shaped), "ends": statistics.fmean(ends),
+            "reached": statistics.fmean(r["episodes_reached_target"] for r in recs),
+            "failed": statistics.fmean(r["episodes_failed"] for r in recs),
             "shaped_sum": statistics.fmean(s * e for s, e in zip(shaped, ends))}
 
 
 def span_lines(runs: Sequence[Dict[int, dict]], labels: Sequence[str],
                spans: Sequence[str], terms: bool = False,
-               rollout: Optional[float] = None) -> List[str]:
+               rollout: Optional[float] = None, counts: bool = False) -> List[str]:
     out = []
     for tok in spans:
         start, stop = (int(float(x)) for x in tok.split(":"))
@@ -217,7 +285,9 @@ def span_lines(runs: Sequence[Dict[int, dict]], labels: Sequence[str],
                        + (f", shaped/end {st['shaped']:.2f} (sd {st['shaped_sd']:.2f}), "
                           f"ends {st['ends']:.1f}" if terms else "")
                        + (f", shaped/step {st['shaped_sum'] / rollout:.4f}"
-                          if terms and rollout else ""))
+                          if terms and rollout else "")
+                       + (f", reached {st['reached']:.1f}, failed {st['failed']:.1f}"
+                          if counts else ""))
     return out
 
 
@@ -240,6 +310,16 @@ def main(argv=None) -> int:
                     "spans' shaped term per agent-step")
     ap.add_argument("--episode-rows", nargs="+", default=None, metavar="START:STOP",
                     help="one per file: align the runs by episode, lines START..STOP")
+    ap.add_argument("--first-episode", type=int, default=1,
+                    help="with --episode-rows: the number of the first aligned episode")
+    ap.add_argument("--reward-crossings", type=float, nargs="+", default=None,
+                    help="crossings of the mean reward over --window logged episodes")
+    ap.add_argument("--keys", nargs="+", default=(), metavar="KEY",
+                    help="add a column per run for each of these logged keys")
+    ap.add_argument("--counts", action="store_true",
+                    help="the spans also give the mean targets reached and episodes failed")
+    ap.add_argument("--continuity", type=float, nargs="+", default=None, metavar="K",
+                    help="the resume rule after each K, the last run against the first")
     args = ap.parse_args(argv)
     labels = args.labels or [f"run {i}" for i in range(len(args.metrics))]
     if len(labels) != len(args.metrics):
@@ -249,19 +329,29 @@ def main(argv=None) -> int:
     elif len(args.episode_rows) != len(args.metrics):
         raise SystemExit("curve_table: one --episode-rows range per metrics file")
     else:
-        runs = [read_episode_rows(p, *(int(x) for x in tok.split(":")))
+        runs = [read_episode_rows(p, *(int(x) for x in tok.split(":")), args.first_episode)
                 for p, tok in zip(args.metrics, args.episode_rows)]
         unit = "episode"
     upto = int(args.upto) if args.upto is not None else None
     rows = parse_rows(args.rows) if args.rows else None
     print("\n".join(table(runs, labels, upto, rows,
-                          "env steps" if unit == "step" else unit, args.terms)))
+                          "env steps" if unit == "step" else unit, args.terms, args.keys)))
     if args.crossings:
         print()
         print("\n".join(crossing_lines(runs, labels, args.crossings, args.window, unit)))
+    if args.reward_crossings:
+        print()
+        print("\n".join(crossing_lines(runs, labels, args.reward_crossings, args.window,
+                                      unit, reward)))
+    if args.continuity:
+        print()
+        print("\n".join(continuity_lines(runs[0], runs[-1], [int(k) for k in args.continuity],
+                                        args.window, labels=(labels[0], labels[-1]),
+                                        unit=unit)))
     if args.spans:
         print()
-        print("\n".join(span_lines(runs, labels, args.spans, args.terms, args.rollout)))
+        print("\n".join(span_lines(runs, labels, args.spans, args.terms, args.rollout,
+                                   args.counts)))
     return 0
 
 

@@ -30,7 +30,8 @@ Planning, on PlanningEnv(scenario, model) over the frozen low-level actor of
 at --n envs with the scenario's sensor noise, and prints one JSON line with
 `eval_average_episode_rewards` of `F16SimRunner.eval(steps)` for each of
 --repeats evals (each eval draws its env seed from the runner's key or
-generator, so the repeats differ). The JAX PlanningEnv reads its aero
+generator, so the repeats differ), and a Box actor's log std per action
+(`log_std`). The JAX PlanningEnv reads its aero
 backend from NEURALPLANE_AERO_BACKEND, which the tool sets to --backend.
 
 With --env-name SingleCombat the checkpoint flies both sides of
@@ -248,6 +249,15 @@ def port_evals(args):
     return env, (MAPPOSelfplayRunner if args.env_name in MAPPO_ENVS else F16SimRunner), RLConfig
 
 
+def actor_log_std(args, runner):
+    """The restored actor's log std per action (a Box actor's), else None."""
+    if args.package == "jax":
+        actor = runner.train_state.params["actor"]
+        return [float(x) for x in actor["log_std"]] if "log_std" in actor else None
+    log_std = getattr(runner.policy.actor, "log_std", None)
+    return None if log_std is None else [float(x) for x in log_std.detach().cpu()]
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--package", choices=["jax", "port"], default="jax")
@@ -289,15 +299,16 @@ def main(argv=None) -> None:
             else:
                 values = [runner.eval(args.steps)["eval_average_episode_rewards"]
                           for _ in range(args.repeats)]
+            log_std = actor_log_std(args, runner)
         finally:
             runner.close()
-    extra = {}
+    extra = {} if log_std is None else {"log_std": log_std}
     if shots is not None and args.env_name.endswith("Shoot"):
-        extra = {"launches_per_step": [s[0] for s in shots],
-                 "hits_per_step": [s[1] for s in shots]}
+        extra.update({"launches_per_step": [s[0] for s in shots],
+                      "hits_per_step": [s[1] for s in shots]})
     if counts is not None:
-        extra = {"reached": [c[0] for c in counts], "failed": [c[1] for c in counts],
-                 "success_share": [c[0] / max(1, c[0] + c[1]) for c in counts]}
+        extra.update({"reached": [c[0] for c in counts], "failed": [c[1] for c in counts],
+                      "success_share": [c[0] / max(1, c[0] + c[1]) for c in counts]})
     print(json.dumps({"package": args.package, "checkpoint": os.path.relpath(args.checkpoint, REPO),
                       "env_name": args.env_name, "model": args.model,
                       "scenario": args.scenario, "n": args.n, "steps": args.steps,

@@ -61,6 +61,12 @@ restores the checkpoint into the flags' runner on the card, runs one
 collect, and profiles 20 collect steps and one epoch of the update on its
 batch (`chip_smoke.profile_training`: device busy, idle share and device
 launches per call, from torch.profiler).
+
+  python tools/train_legs.py --summary runs/heading_torch/leg_0 runs/heading_torch/leg_1
+
+prints one JSON line per finished leg (`summarize_leg`): its seconds per
+episode, collect ms per step and update seconds (min, median, max),
+agent-steps/s, the collect's and update's shares, peak MiB and launches.
 """
 from __future__ import annotations
 
@@ -306,6 +312,54 @@ def profile_run(state_path: str, train_argv: list) -> None:
             runner.close()
 
 
+def summarize_leg(out: str) -> dict:
+    """A finished leg's speed from its `leg.json`, `phases.jsonl` and
+    `metrics.jsonl`: seconds per episode (differences of `wall_s`, the
+    leg's first from the resumed total), collect ms per collected step,
+    update seconds, agent-steps/s, the collect's and the update's shares of
+    the episodes' time, peak MiB and the launch counts at the leg's end."""
+    import statistics
+    with open(os.path.join(out, "leg.json"), encoding="utf-8") as f:
+        leg = json.load(f)
+    phases = [json.loads(ln) for ln in open(os.path.join(out, "phases.jsonl"),
+                                            encoding="utf-8") if ln.strip()]
+    metrics = os.path.join(out, "metrics.jsonl")
+    if not os.path.exists(metrics):   # a leg copied beside its run's merged lines
+        metrics = os.path.join(os.path.dirname(out.rstrip("/")), "metrics.jsonl")
+    with open(metrics, encoding="utf-8") as f:
+        recs = [rec for rec in map(json.loads, filter(str.strip, f)) if is_episode_line(rec)]
+    argv = leg["argv"]
+    n_envs = int(argv[argv.index("--n-rollout-threads") + 1])
+    buffer = int(argv[argv.index("--buffer-size") + 1])
+    end = [rec["step"] for rec in recs].index(leg["steps"]) + 1
+    lines = recs[end - leg["episodes"]:end]
+    if end > leg["episodes"]:
+        before = recs[end - leg["episodes"] - 1]["wall_s"]
+    elif leg["resumed_from"]:
+        before = resumed_totals(leg["resumed_from"])[1]
+    else:
+        before = 0.0
+    walls = [before] + [rec["wall_s"] for rec in lines]
+    episode_s = [round(b - a, 2) for a, b in zip(walls, walls[1:])]
+    collect = [ph["collect_s"] for ph in phases]
+    update = [ph["update_s"] for ph in phases]
+
+    def spread(xs, scale=1.0):
+        return [round(min(xs) * scale, 4), round(statistics.median(xs) * scale, 4),
+                round(max(xs) * scale, 4)]
+    return {"leg": os.path.basename(out.rstrip("/")), "episodes": leg["episodes"],
+            "steps": [lines[0]["step"], lines[-1]["step"]], "leg_wall_s": leg["leg_wall_s"],
+            "episode_s": spread(episode_s), "collect_ms_per_step": spread(collect, 1e3 / buffer),
+            "update_s": spread(update),
+            "agent_steps_per_s_at_median": round(n_envs * buffer / statistics.median(episode_s)),
+            "fps_last_line": lines[-1].get("fps"),
+            "collect_share": round(sum(collect) / sum(episode_s), 3),
+            "update_share": round(sum(update) / sum(episode_s), 3),
+            "collect_s": round(sum(collect), 2), "update_s_total": round(sum(update), 2),
+            "peak_mib": max(ph["peak_mib"] for ph in phases),
+            "launches": phases[-1]["launches"]}
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     split = argv.index("--") if "--" in argv else len(argv)
@@ -318,6 +372,8 @@ def main(argv=None) -> int:
     ap.add_argument("--to", default=None, help="the pickle --export-actor writes")
     ap.add_argument("--profile", default=None, metavar="STATE_PT",
                     help="profile a collect step and an update epoch from this checkpoint")
+    ap.add_argument("--summary", nargs="+", default=None, metavar="LEG_DIR",
+                    help="print each finished leg's speed as one JSON line")
     ap.add_argument("--timed-child", default=None, metavar="PHASES_JSONL",
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv[:split])
@@ -330,6 +386,10 @@ def main(argv=None) -> int:
         return 0
     if args.profile:
         profile_run(args.profile, train_argv)
+        return 0
+    if args.summary:
+        for out in args.summary:
+            print(json.dumps(summarize_leg(out)))
         return 0
     leg = run_leg(args.out, train_argv, args.budget_s, args.stop_success, args.resume)
     return 0 if leg["rc"] == 0 and leg["episodes"] else 1
