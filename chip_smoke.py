@@ -166,13 +166,22 @@ Phases, each reported on its own line:
      each part: (a) over results/control, (b) over results/control_torch_final
      (the port's own hierarchy), each against the JAX package's eval of
      the same pair, both logged beside phases 18, 37 and 40(b).
+ 42. the port's 1v1 evadable-missile self-play run (results/
+     shoot_evadable_torch: scripts/train_shoot_evadable.sh trained from
+     scratch on the card through the JAX run's launch phase change, its
+     episodes 1-120): its final actor as the attacker in a short per-shot
+     Pk probe (scripts/pk_probe.py, 256 envs x 300 steps, both sides
+     sampled) against the JAX pk probe's seeded random actor, 3301
+     nlplant_distilled launches and nothing else; the per-shot Pk both ways
+     and the shots fired held as samples against the JAX package's probe
+     of the same pair at the same protocol on the CPU.
 
 The launch counters are set to 0 just before phases 6, 7, 12, 13, 14, 15,
 16, 35, 17, 18, 37, each eval of 19, 38, 39, 40 and 41, each timed run of 20 and 23, the
 runs of 21, 24 and 25, the evals of 22 and 26, each render of 29, each run
-of 32, each rank's runs in 33, each row of 34(b-d) and each probe run of 36,
-and read just after; a kernel of the path that did not launch, or one that
-launched off its path in 17-26, 29 and 32-41, fails the run. Any
+of 32, each rank's runs in 33, each row of 34(b-d) and each probe run of 36
+and 42, and read just after; a kernel of the path that did not launch, or
+one that launched off its path in 17-26, 29 and 32-42, fails the run. Any
 mismatch, non-finite value or failed check exits non-zero. The
 second-to-last line is the kernel table as JSON, the last line the device
 record.
@@ -3401,6 +3410,70 @@ def phase_probes(table, pk=PROBE_PK, ladder=PROBE_LADDER, pallas_steps=PROBE_PAL
         table["nlplant_grouped"]["launches_pk_probe_pallas"] = counts["nlplant_grouped"]
 
 
+# Phase 42: the port's 1v1 evadable-missile run (results/shoot_evadable_torch)
+# flown by the port's pk probe against the JAX pk probe's random actor
+# (`tools/combat_eval.py jax-random --env SingleCombatShoot --scenario
+# selfplay_shoot_evadable --seed 0`), held against `python tools/combat_eval.py
+# jax-probe pk -- --ckpt-dir <links> --ego final --opponent random --use-prior
+# --stochastic both --num-envs 256 --steps 300 --seed 0` (the JAX package on
+# the CPU, "distilled" in interpret mode, the same actors).
+SHOOT_EVADABLE_LINKS = {"final": "shoot_evadable_torch/policy_checkpoint.pkl",
+                        "jaxrandom": "shoot_evadable_torch/jax_random_actor.pkl"}
+SHOOT_EVADABLE_PK = (256, 300)
+SHOOT_EVADABLE_JAX = None
+
+
+def pk_agree(p, s, p_ref, s_ref) -> bool:
+    """Two per-shot Pk as samples: |p - p'| <= 4 sqrt(q (1 - q) (1/s + 1/s')),
+    q the pooled Pk (tools/combat_eval.py's agreement test)."""
+    q = (p * s + p_ref * s_ref) / max(s + s_ref, 1)
+    return abs(p - p_ref) <= 4.0 * math.sqrt(q * (1 - q) * (1 / max(s, 1) + 1 / max(s_ref, 1)))
+
+
+def phase_shoot_evadable(table, pk=SHOOT_EVADABLE_PK, ref=SHOOT_EVADABLE_JAX, phase=42):
+    """results/shoot_evadable_torch's final actor in pk_probe.main against the
+    JAX probe's random actor on "distilled", counters set to 0 before and
+    read after: nlplant_distilled 11 per match step and 1 for the reset,
+    nothing else; the line's keys and ranges, and the per-shot Pk both ways
+    and the shots of each side as samples against `ref`, the JAX probe's
+    line at the same protocol."""
+    import tempfile
+    from neuralplane_tpu_torch.scripts import pk_probe
+    with tempfile.TemporaryDirectory() as d:
+        for name, path in SHOOT_EVADABLE_LINKS.items():
+            os.symlink(os.path.join(REPO, "results", path), os.path.join(d, f"actor_{name}.pkl"))
+        zero_counts()
+        tot, wall = run_probe_cli(pk_probe.main, [
+            "--ckpt-dir", d, "--ego", "final", "--opponent", "jaxrandom", "--use-prior",
+            "--stochastic", "both", "--num-envs", str(pk[0]), "--steps", str(pk[1]),
+            "--seed", "0", "--device", "cuda"])
+        counts = read_counts()
+    log(f"phase {phase} pk_probe, the port-trained evadable actor against the JAX probe's "
+        f"random actor ({pk[0]} envs, {pk[1]} steps): {json.dumps(tot)}; {wall:.2f} s wall "
+        f"with the env and actors built, {wall * 1e3 / pk[1]:.2f} ms per match step; "
+        f"launches {counts}")
+    check_counts(f"phase {phase} pk_probe", counts, {"nlplant_distilled": 11 * pk[1] + 1})
+    nums = [v for k, v in tot.items() if k not in ("ego", "opponent", "scenario")]
+    if set(tot) != PK_PROBE_KEYS or not all(math.isfinite(v) and v >= 0 for v in nums) \
+            or not 0 <= tot["pk_against_opp"] <= 1 or not 0 <= tot["pk_against_ego"] <= 1 \
+            or tot["ego_fired"] == 0:
+        raise Mismatch(f"phase {phase}: pk_probe's line {tot}")
+    if ref is not None:
+        rows = [("pk_against_opp", "ego_fired"), ("pk_against_ego", "opp_fired")]
+        for p_key, s_key in rows:
+            ok = pk_agree(tot[p_key], tot[s_key], ref[p_key], ref[s_key])
+            log(f"phase {phase} {p_key}: port {tot[p_key]:.4f} over {tot[s_key]:g} shots, "
+                f"JAX {ref[p_key]:.4f} over {ref[s_key]:g}: {'agree' if ok else 'DIFFER'}")
+            if not ok:
+                raise Mismatch(f"phase {phase}: {p_key} {tot[p_key]} against the JAX probe's "
+                               f"{ref[p_key]}")
+        for key in ("ego_fired", "opp_fired"):
+            a, b = tot[key], ref[key]
+            if abs(a - b) > 4.0 * math.sqrt(a + b) + 1.0:
+                raise Mismatch(f"phase {phase}: {key} {a:g} against the JAX probe's {b:g}")
+    table["nlplant_distilled"]["launches_shoot_evadable_pk"] = counts["nlplant_distilled"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=10 ** 6, help="aircraft per batch")
@@ -3513,6 +3586,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     phase_tracking_final(table)
     log(f"phase 41: {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    phase_shoot_evadable(table)
+    log(f"phase 42: {time.perf_counter() - t0:.1f} s wall")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall in all")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

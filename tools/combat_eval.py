@@ -30,10 +30,17 @@ row and the agreement test (a pk row's tallies summed over its seeds):
   (row B: the verdict only, the JAX ladder being of a longer run).
 
 `jax-random` writes the random actor the JAX pk probe draws (row A5j flies
-it; the port's own `random` is another draw). `curve` prints two self-play
+it; the port's own `random` is another draw). `jax-probe pk|ladder
+[--backend distilled] [--to FILE] -- <flags>` runs the JAX package's
+probe on the CPU, its env on that aero backend (the Pallas kernel in
+interpret mode), and prints its last line. `curve` prints two self-play
 runs' training records (the first episode
 and every 10th after it) and ELO evals side by side, up to the shorter
-run's last step, and each run's seconds per episode.
+run's last step, and each run's seconds per episode; `curve --verdict`
+prints the missile runs' 10-episode windows (launches and hits per
+rollout, hits per launch, entropy term) and the verdict rule of
+`results/shoot_evadable_torch/REPORT.md`, the last run against the first
+(`--resumes K ...`: the last episode before each of its resumes).
 """
 from __future__ import annotations
 
@@ -322,6 +329,187 @@ def curve(args) -> None:
               f"median {sorted(walls)[len(walls) // 2]:.2f}")
 
 
+def shoot_windows(run: list, width: int = 10) -> list:
+    """A missile self-play run's records by `width`-episode window (episodes
+    1-based from `step`, one episode the first record's steps): the window's
+    first episode, its mean launches and hits per rollout, hits per launch
+    (its sums' ratio) and mean entropy term."""
+    train = [r for r in run if "average_episode_rewards" in r]
+    per = train[0]["step"]
+    out = []
+    for lo in range(1, train[-1]["step"] // per + 1, width):
+        recs = [r for r in train if lo <= r["step"] // per < lo + width]
+        if len(recs) < width:
+            break
+        launches = sum(r["shoot_launches"] for r in recs)
+        out.append({"first": lo, "launches": launches / len(recs),
+                    "hits": sum(r["shoot_hits"] for r in recs) / len(recs),
+                    "hit_share": sum(r["shoot_hits"] for r in recs) / max(launches, 1),
+                    "entropy": sum(r["policy_entropy_loss"] for r in recs) / len(recs)})
+    return out
+
+
+def shoot_evals(run: list) -> list:
+    """(episode, latest_elo) of each ELO eval, the episode it followed."""
+    per = next(r["step"] for r in run if "average_episode_rewards" in r)
+    return [(r["step"] // per, r["latest_elo"]) for r in run if "eval_episodes_ended" in r]
+
+
+# the verdict rule of results/shoot_evadable_torch/REPORT.md (Step 1(c)):
+# the launch ramp's window, the launch level and hit share of two windows,
+# the entropy term of the last, the ELO evals, and each resume's continuity
+RAMP_LAUNCHES = 10_000
+RAMP_FIRST = (61, 111)          # the port's ramp window starts in this range
+LEVEL_WINDOWS = (101, 111)
+LEVEL_FACTOR = (0.5, 1.5)       # launches per rollout, of the JAX window's
+SHARE_BAND = 0.075              # hits per launch, +- the JAX window's
+ENTROPY_BAND = 1.0              # the entropy term of window 111-120, +-
+ELO_BAND = 60.0                 # the last eval, +- the JAX eval of the same count
+ELO_DROP = 16.0                 # at most one drop after the first rise, this deep
+
+
+def shoot_verdict(ref: list, run: list, resumes=(), after: int = 3) -> list:
+    """The rule's parts for `run` (the port) against `ref` (the JAX run):
+    rows (part, JAX value, port value, band, held), `ref` cut at `run`'s
+    last step."""
+    ref = [r for r in ref if r["step"] <= run[-1]["step"]]
+    wr, wp = ({w["first"]: w for w in shoot_windows(x)} for x in (ref, run))
+    rows = []
+
+    def ramp(ws):
+        return next((k for k in sorted(ws) if ws[k]["launches"] > RAMP_LAUNCHES), None)
+    r_ref, r_run = ramp(wr), ramp(wp)
+    rows.append(("launch ramp (first window above 10,000)", r_ref, r_run,
+                 f"starts at {RAMP_FIRST[0]} to {RAMP_FIRST[1]}",
+                 r_run is not None and RAMP_FIRST[0] <= r_run <= RAMP_FIRST[1]))
+    for k in LEVEL_WINDOWS:
+        a, b = wr[k], wp.get(k)
+        lo, hi = (f * a["launches"] for f in LEVEL_FACTOR)
+        rows.append((f"launches {k}-{k + 9}", round(a["launches"], 1),
+                     b and round(b["launches"], 1), f"{lo:.1f} to {hi:.1f}",
+                     b is not None and lo <= b["launches"] <= hi))
+        lo, hi = a["hit_share"] - SHARE_BAND, a["hit_share"] + SHARE_BAND
+        rows.append((f"hits per launch {k}-{k + 9}", round(a["hit_share"], 4),
+                     b and round(b["hit_share"], 4), f"{lo:.4f} to {hi:.4f}",
+                     b is not None and lo <= b["hit_share"] <= hi))
+    k = LEVEL_WINDOWS[-1]
+    a, b = wr[k]["entropy"], wp.get(k, {}).get("entropy")
+    rows.append((f"entropy term {k}-{k + 9}", round(a, 4), b and round(b, 4),
+                 f"{a - ENTROPY_BAND:.4f} to {a + ENTROPY_BAND:.4f}",
+                 b is not None and abs(b - a) <= ENTROPY_BAND))
+    er, ep = shoot_evals(ref), shoot_evals(run)
+    rise = next((i for i, (_, e) in enumerate(ep) if e > 1000.0), None)
+    drops = [ep[i - 1][1] - ep[i][1] for i in range(max(rise or 0, 1), len(ep))
+             if ep[i][1] < ep[i - 1][1]] if rise is not None else []
+    rows.append(("ELO monotone from its first rise (episode)",
+                 next((n for n, e in er if e > 1000.0), None),
+                 ep[rise][0] if rise is not None else None,
+                 f"at most one drop, of at most {ELO_DROP:g}",
+                 rise is not None and len(drops) <= 1 and all(d <= ELO_DROP for d in drops)))
+    n_ev, last = len(ep), ep[-1][1] if ep else None
+    ref_same = er[n_ev - 1][1] if 0 < n_ev <= len(er) else None
+    rows.append((f"ELO at the last eval (eval {n_ev}: JAX episode "
+                 f"{er[n_ev - 1][0] if ref_same else '-'}, port {ep[-1][0] if ep else '-'})",
+                 ref_same and round(ref_same, 2), last and round(last, 2),
+                 f"+-{ELO_BAND:g}", ref_same is not None and abs(last - ref_same) <= ELO_BAND))
+    for k in resumes:
+        rows.extend(resume_rows(ref, run, k, after))
+    return rows
+
+
+def resume_rows(ref: list, run: list, k: int, after: int = 3, window: int = 10) -> list:
+    """A resume after episode `k`, judged at episode k + `after`: the entropy
+    term within m + d +- max(3 sd, 0.05), m and sd the port's over the
+    `window` episodes to k, d the JAX run's own move from its mean over them
+    to its episode k + after; launches within a factor of 2 of the port's
+    mean over the window; the first eval after the resume within 32 of the
+    last before it."""
+    import statistics
+
+    def by_ep(x):
+        per = next(r["step"] for r in x if "average_episode_rewards" in r)
+        return {r["step"] // per: r for r in x if "average_episode_rewards" in r}
+    er, ep = by_ep(ref), by_ep(run)
+    span = [ep[e] for e in range(k - window + 1, k + 1)]
+    ent = [r["policy_entropy_loss"] for r in span]
+    m, sd = statistics.fmean(ent), statistics.pstdev(ent)
+    d = er[k + after]["policy_entropy_loss"] - statistics.fmean(
+        er[e]["policy_entropy_loss"] for e in range(k - window + 1, k + 1))
+    got = ep[k + after]
+    half = max(3 * sd, 0.05)
+    launches = statistics.fmean(r["shoot_launches"] for r in span)
+    evals = shoot_evals(run)
+    before = [e for n, e in evals if n <= k]
+    after_ev = [e for n, e in evals if n > k]
+    return [
+        (f"resume after {k}: entropy term at {k + after}", round(er[k + after]
+                                                              ["policy_entropy_loss"], 4),
+         round(got["policy_entropy_loss"], 4), f"{m + d - half:.4f} to {m + d + half:.4f}",
+         abs(got["policy_entropy_loss"] - (m + d)) <= half),
+        (f"resume after {k}: launches at {k + after}", er[k + after]["shoot_launches"],
+         got["shoot_launches"], f"{launches / 2:.1f} to {launches * 2:.1f}",
+         launches / 2 <= got["shoot_launches"] <= launches * 2),
+        (f"resume after {k}: first ELO eval after it", None,
+         after_ev and round(after_ev[0], 2),
+         f"within 32 of {before[-1]:.2f}" if before else "-",
+         bool(before and after_ev) and abs(after_ev[0] - before[-1]) <= 32.0),
+    ]
+
+
+def shoot_tables(args) -> None:
+    """The windows of each run side by side, then the verdict rows."""
+    runs = [read_jsonl(p) for p in args.metrics]
+    ws = [{w["first"]: w for w in shoot_windows(r)} for r in runs]
+    cols = ("launches", "hits", "hit_share", "entropy")
+    print("| episodes | " + " | ".join(f"{label} {c}" for c in cols for label in args.labels)
+          + " |")
+    print("|" + " --- |" * (1 + len(cols) * len(runs)))
+    for k in sorted(set(ws[0]) & set(ws[-1])):
+        if k > max(ws[-1]):
+            break
+        print(f"| {k}-{k + 9} | " + " | ".join(
+            f"{w[k][c]:.4f}" if c in ("hit_share", "entropy") else f"{w[k][c]:.1f}"
+            for c in cols for w in ws) + " |")
+    print()
+    print("| part | JAX | port | band | held |")
+    print("| --- | --- | --- | --- | --- |")
+    for part, a, b, band, held in shoot_verdict(runs[0], runs[-1], args.resumes):
+        print(f"| {part} | {a} | {b} | {band} | {'held' if held else 'failed'} |")
+
+
+def jax_probe(args) -> None:
+    """The JAX package's tools/{pk,ladder}_probe.py on the CPU with its
+    flags, its env on `--backend` (NEURALPLANE_AERO_BACKEND; "distilled"
+    runs the Pallas kernel in interpret mode); prints the tool's last line
+    and appends it, with the flags and seconds, to `--to`."""
+    import importlib.util
+    import jax
+    from jax.experimental import pallas as pl
+    jax.config.update("jax_platforms", "cpu")
+    os.environ["NEURALPLANE_AERO_BACKEND"] = args.backend
+    orig = pl.pallas_call
+    pl.pallas_call = lambda *a, **k: orig(*a, **{**k, "interpret": True})
+    path = os.path.join(REPO, "tools", f"{args.tool}_probe.py")
+    spec = importlib.util.spec_from_file_location(f"jax_{args.tool}_probe", path)
+    mod = importlib.util.module_from_spec(spec)
+    argv, sys.argv = sys.argv, [path, *args.flags]
+    buf = io.StringIO()
+    t0 = time.time()
+    try:
+        spec.loader.exec_module(mod)
+        with contextlib.redirect_stdout(buf):
+            mod.main()
+    finally:
+        sys.argv, pl.pallas_call = argv, orig
+    last = json.loads(buf.getvalue().strip().splitlines()[-1])
+    print(json.dumps(last))
+    if args.to:
+        with open(args.to, "a", encoding="utf-8") as f:
+            f.write(json.dumps({"tool": f"tools/{args.tool}_probe.py", "argv": args.flags,
+                                "backend": args.backend, "wall_s": round(time.time() - t0, 1),
+                                "last": last}) + "\n")
+
+
 def jax_random(args) -> None:
     """The random actor the JAX pk probe draws for `--opponent random`
     (`init_actor_params(PRNGKey(seed + 99))` of its policy on the env),
@@ -357,12 +545,27 @@ def main(argv=None) -> None:
     k = sub.add_parser("curve", help="self-play runs' metrics.jsonl side by side")
     k.add_argument("metrics", nargs="+")
     k.add_argument("--labels", nargs="+", required=True)
+    k.add_argument("--verdict", action="store_true",
+                   help="the missile runs' 10-episode windows and the verdict rule of "
+                   "results/shoot_evadable_torch/REPORT.md, the last run against the first")
+    k.add_argument("--resumes", type=int, nargs="*", default=[],
+                   help="--verdict: the last episode before each resume of the last run")
     j = sub.add_parser("jax-random", help="the JAX pk probe's random actor as a pickle")
     j.add_argument("--to", required=True)
     j.add_argument("--env", default="MultipleCombatShoot")
     j.add_argument("--scenario", default="multiple_selfplay_shoot_evadable")
     j.add_argument("--seed", type=int, default=0)
+    q = sub.add_parser("jax-probe", help="the JAX package's probe on the CPU")
+    q.add_argument("tool", choices=["pk", "ladder"])
+    q.add_argument("--backend", default="distilled", choices=["distilled", "stacked"])
+    q.add_argument("--to", default=None, help="append the line to this file")
+    q.add_argument("flags", nargs=argparse.REMAINDER, help="the probe's flags, after --")
     args = ap.parse_args(argv)
+    if args.cmd == "jax-probe":
+        args.flags = [f for f in args.flags if f != "--"]
+        return jax_probe(args)
+    if args.cmd == "curve" and args.verdict:
+        return shoot_tables(args)
     {"run": run, "compare": compare, "curve": curve, "jax-random": jax_random}[args.cmd](args)
 
 

@@ -29,8 +29,8 @@ response to near-random actions; the two packages' RNG streams differ by
 design, so compare the counts as samples (a count c has a spread of about
 sqrt(c) between seeds).
 
-`--set KEY=VALUE` (repeatable, VALUE as JSON) overrides the heading
-scenario's config in both packages, e.g. `--set reuse_step_xdot=false`
+`--set KEY=VALUE` (repeatable, VALUE as JSON) overrides the scenario's
+config in both packages, e.g. `--set reuse_step_xdot=false`
 (the overload check at the post-step state, as before the JAX package's
 commit 77ade88).
 
@@ -74,6 +74,32 @@ failed):
 another commit (e.g. the one the JAX heading run was made at), and
 `--package jax` runs the JAX side alone: the same collect from the same
 seed, so that two commits of the reference can be compared.
+
+`--scenario selfplay_shoot_evadable` is the 1v1 evadable-missile self-play
+run (`scripts/train_shoot_evadable.sh`: SelfplayRunner on
+SingleCombatShootEnv, FSP, the Beta launch prior, chunks of 8): both
+packages' runners from the JAX init actor and critic (seed --seed), the
+opponent the same initial actor (the pool's entry 0), or `--checkpoint`
+(the ego) and `--opponent` (a JAX actor pickle or a port `actor_<n>.pt`).
+The line's `collect` holds the `shoot_*` counts (launches, hits, pk_sum),
+the done and bad flags by termination cause over all agents
+(`shoot_x_<cause>_bad`, `shoot_x_<cause>_done`) and the ego's reward sum
+split by two rules for the +-200 event term: `done_bad` (200 (done - bad)
+on any end, the JAX package since c612e50 and the port) and `win_lose`
+(200 (win - lose) on the shutdown condition alone, the package the JAX
+run trained at). Under `reward_terms`, each rule's event and shaped sums
+and its count of ego steps whose shaped rest is 100 or more in size: the
+package's own rule leaves none (no step's posture, launch cost and
+damage shaping reach 100), and that rule is named under `rule`.
+
+  python tools/heading_collect_compare.py --scenario selfplay_shoot_evadable \
+      --backend distilled --n 200 --steps 1000 --update --out a.jsonl
+  python tools/heading_collect_compare.py --compare a.jsonl b.jsonl
+
+`--out FILE` appends the lines to FILE too; `--compare A B` prints, for
+each count of the first line of A and of B, both values and whether they
+agree as samples (|c - c'| <= 4 sqrt(c + c') + 1), and the update's train
+infos side by side.
 """
 from __future__ import annotations
 
@@ -185,10 +211,215 @@ def reward_terms(rewards, masks, bad_masks, counters: dict, event_reward) -> dic
     return out
 
 
+SHOOT = "selfplay_shoot_evadable"
+CAUSES = ("overload", "low_altitude", "high_speed", "low_speed", "extreme_state", "crash",
+          "timeout", "shutdown")
+# the run's flags (scripts/train_shoot_evadable.sh) that shape a collect and an update
+SHOOT_FLAGS = dict(use_selfplay=True, use_prior=True, selfplay_algorithm="fsp",
+                   n_choose_opponents=1, elo_tie_band=50.0, num_mini_batch=5, ppo_epoch=16,
+                   lr=3e-4, gamma=0.99, entropy_coef=1e-3, max_grad_norm=2.0)
+OVER = 100.0   # no ego step's shaped reward reaches this size
+
+
+def cause_flags(env, X, opp, state, xdot) -> list:
+    """The combat env's termination conditions, (bad, done, exceed) each, as
+    its `_termination` lists them (the same list in both packages)."""
+    cfg, model, m = env.config, env.model, state.model
+    return [("overload", X.overload(cfg, model, m, xdot)),
+            ("low_altitude", X.low_altitude(cfg, model, m)),
+            ("high_speed", X.high_speed(cfg, model, m)),
+            ("low_speed", X.low_speed(cfg, model, m)),
+            ("extreme_state", X.extreme_state(cfg, model, m)),
+            ("crash", X.crash(cfg, m.s[:, :3], m.s[opp, :3])),
+            ("timeout", X.timeout(cfg, state.step_count)),
+            ("shutdown", X.shutdown(cfg, state.blood, state.blood[opp]))]
+
+
+def instrument_shoot(env, X, opp, f32) -> dict:
+    """Add each cause's done and bad counts and the shutdown's per-agent
+    win and lose flags to the env's step info (`x/...`), and keep the last
+    step's output in the returned dict (under "out")."""
+    term, step, box = env._termination, env.step, {}
+
+    def termination(state, xdot):
+        done, bad, exceed, info = term(state, xdot)
+        for name, (b, d, _) in cause_flags(env, X, opp, state, xdot):
+            info[f"x/{name}_bad"], info[f"x/{name}_done"] = b.sum(), d.sum()
+            if name == "shutdown":
+                info["x/win"], info["x/lose"] = f32(d), f32(b)
+        return done, bad, exceed, info
+
+    def stepped(state, action):
+        state, out = step(state, action)
+        box["out"] = out
+        return state, out
+    env._termination, env.step = termination, stepped
+    return box
+
+
+def shoot_step_counts(out, split, f32) -> dict:
+    """One step's 0-d counts (summed over the collect as `shoot_*`): the
+    cause counts, the ego's reward and each event rule's sum and the ego
+    steps whose rest is OVER or more in size, pk_sum where the package's
+    info lacks it."""
+    info = out.info
+
+    def ego(x):
+        return split(x[:, None])[0]
+    r, done, bad = ego(out.reward), ego(f32(out.done)), ego(f32(out.bad_done))
+    win, lose = ego(info["x/win"]), ego(info["x/lose"])
+    c = {"shoot_x_reward": r.sum(), "shoot_x_done": f32(out.done).sum(),
+         "shoot_x_bad": f32(out.bad_done).sum(), "shoot_x_ego_done": done.sum(),
+         "shoot_x_ego_bad": bad.sum(), "shoot_x_ego_win": win.sum(),
+         "shoot_x_ego_lose": lose.sum()}
+    for rule, ev in (("done_bad", 200.0 * (done - bad)), ("win_lose", 200.0 * (win - lose))):
+        c[f"shoot_x_event_{rule}"] = ev.sum()
+        c[f"shoot_x_over_{rule}"] = f32(abs(r - ev) >= OVER).sum()
+    c.update({"shoot_x_" + k[2:]: v for k, v in info.items()
+              if k.startswith("x/") and k[2:] not in ("win", "lose")})
+    if "shoot/pk_sum" not in info:   # before c612e50: the per-agent vector only
+        c["shoot_pk_sum"] = info["shoot/pk_dealt_vec"].sum()
+    return c
+
+
+def shoot_summary(counters: dict, ends: float) -> dict:
+    """The collect's counts, its average episode reward as the runner logs
+    it, and the reward split by each event rule (`reward_terms`)."""
+    out = {k: float(v) for k, v in sorted(counters.items())}
+    total = out["shoot_x_reward"]
+    out["ends"] = ends
+    out["average_episode_rewards"] = total / max(ends, 1.0)
+    terms = {rule: {"event_sum": out[f"shoot_x_event_{rule}"],
+                    "shaped_sum": total - out[f"shoot_x_event_{rule}"],
+                    "over": out[f"shoot_x_over_{rule}"]}
+             for rule in ("done_bad", "win_lose")}
+    own = [rule for rule, t in terms.items() if t["over"] == 0]
+    out["reward_terms"] = {"reward_sum": total, **terms,
+                           "rule": own[0] if len(own) == 1 else None}
+    return out
+
+
+def agree(a: float, b: float) -> bool:
+    """Two counts agree as samples: |a - b| <= 4 sqrt(a + b) + 1."""
+    import math
+    return abs(a - b) <= 4.0 * math.sqrt(abs(a) + abs(b)) + 1.0
+
+
+def is_count(key: str) -> bool:
+    """A collect's count (a sum of flags or pk weights), not a reward sum."""
+    return not any(w in key for w in ("reward", "event"))
+
+
+def compare_lines(a: dict, b: dict) -> list:
+    """Rows (key, a, b, agree) for the counts of two lines' collects, and
+    (key, a, b, None) for their reward sums and updates' train infos."""
+    ca, cb = a["collect"], b["collect"]
+    rows = [(k, ca[k], cb[k], agree(ca[k], cb[k]) if is_count(k) else None)
+            for k in sorted(ca) if k in cb and isinstance(ca[k], float)]
+    ra, rb = ca.get("reward_terms", {}), cb.get("reward_terms", {})
+    for rule in ("done_bad", "win_lose"):
+        if rule in ra and rule in rb:
+            rows += [(f"{rule}.{k}", ra[rule][k], rb[rule][k], None)
+                     for k in ("event_sum", "shaped_sum")]
+    ua, ub = ca.get("update", {}), cb.get("update", {})
+    rows += [(f"update.{k}", ua[k], ub[k], None) for k in sorted(ua) if k in ub]
+    return rows
+
+
+def load_actor(path: str):
+    """A JAX actor pickle (or TrainState pickle's actor), or a port pool
+    entry `actor_<n>.pt`, as the JAX param tree of numpy arrays."""
+    if path.endswith(".pt"):
+        from neuralplane_tpu_torch.algorithms.networks import params_to_jax
+        from neuralplane_tpu_torch.algorithms.ppo import PPOPolicy
+        from neuralplane_tpu_torch.algorithms.rl_config import RLConfig
+        from neuralplane_tpu_torch.envs import SingleCombatShootEnv
+        from neuralplane_tpu_torch.utils.checkpoint import load_checkpoint
+        env = SingleCombatShootEnv(num_envs=1, config=SHOOT, aero_backend="stacked",
+                                   device="cpu")
+        policy = PPOPolicy(RLConfig(use_prior=True), env.num_observation, env.num_actions,
+                           device="cpu")
+        policy.actor.load_state_dict(load_checkpoint(path))
+        return params_to_jax(policy.actor)
+    return control_actor(path)
+
+
+def run_jax_shoot(args, cfg_kw):
+    """The JAX side of the shoot collect: (runner, summary, {}, seconds)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from neuralplane_tpu.algorithms.rl_config import RLConfig
+    from neuralplane_tpu.envs import SingleCombatShootEnv
+    from neuralplane_tpu.envs import combat
+    from neuralplane_tpu.runner import SelfplayRunner
+
+    class Runner(SelfplayRunner):
+        def _collect_step(self, params, opp_params, carry):
+            carry, data = super()._collect_step(params, opp_params, carry)
+            data.update(shoot_step_counts(box["out"], self._split,
+                                          lambda x: x.astype(jnp.float32)))
+            return carry, data
+    from neuralplane_tpu.utils.config import load_config
+    env = SingleCombatShootEnv(num_envs=args.n, config=load_config(SHOOT, **args.set),
+                               aero_backend=args.backend)
+    box = instrument_shoot(env, combat.X, env._opponent_index(),
+                           lambda x: x.astype(jnp.float32))
+    run = Runner(env, RLConfig(**cfg_kw), run_dir=os.path.join(args.tmp, "jax"),
+                 model_dir=getattr(args, "checkpoint", None))
+    if getattr(args, "opponent", None):
+        run.opponent_params = jax.tree.map(lambda x: jnp.asarray(x)[None],
+                                           load_actor(args.opponent))
+    carry = run.init_carry(jax.random.PRNGKey(args.seed))
+    t0 = time.time()
+    carry, batch, counters = run.collect(run.train_state.params, run.opponent_params, carry)
+    ends = float((np.asarray(batch.masks[1:]) == 0).sum()
+                 + (np.asarray(batch.bad_masks[1:]) == 0).sum())
+    out = shoot_summary({k: np.asarray(v) for k, v in counters.items()}, ends)
+    args.jax_params = jax.tree.map(np.asarray, run.train_state.params)
+    args.jax_opponent = jax.tree.map(lambda x: np.asarray(x)[0], run.opponent_params)
+    if args.update:
+        out["update"] = {k: float(v) for k, v in run.train(batch).items()}
+    return run, out, {}, time.time() - t0
+
+
+def run_port_shoot(args, cfg_kw, jax_params):
+    """The port's side of the shoot collect on the CPU: (summary, {}, seconds)."""
+    from neuralplane_tpu_torch.algorithms.networks import params_from_jax
+    from neuralplane_tpu_torch.algorithms.rl_config import RLConfig
+    from neuralplane_tpu_torch.envs import SingleCombatShootEnv
+    from neuralplane_tpu_torch.envs import combat
+    from neuralplane_tpu_torch.runner import SelfplayRunner, team_split
+
+    class Runner(SelfplayRunner):
+        def _collect_step(self, carry):
+            carry, data = super()._collect_step(carry)
+            data.update(shoot_step_counts(box["out"], lambda x: team_split(self.env, x),
+                                          lambda x: x.float()))
+            return carry, data
+    from neuralplane_tpu_torch.utils.config import load_config
+    env = SingleCombatShootEnv(num_envs=args.n, config=load_config(SHOOT, **args.set),
+                               aero_backend=args.backend, device="cpu")
+    box = instrument_shoot(env, combat.X, env._opp, lambda x: x.float())
+    run = Runner(env, RLConfig(**cfg_kw), run_dir=os.path.join(args.tmp, "port"))
+    run.policy.load_state_dict(params_from_jax(jax_params))
+    run.opponents[0].load_state_dict(params_from_jax(args.jax_opponent))
+    carry = run.init_carry(args.seed)
+    t0 = time.time()
+    carry, batch, counters = run.collect(carry)
+    ends = float((batch.masks[1:] == 0).sum() + (batch.bad_masks[1:] == 0).sum())
+    out = shoot_summary({k: v.numpy() for k, v in counters.items()}, ends)
+    if args.update:
+        out["update"] = {k: float(v) for k, v in run.train(batch).items()}
+    run.close()
+    return out, {}, time.time() - t0
+
+
 def collect_config(args) -> dict:
     """The RLConfig keywords of the collect: the run's chunk length."""
     return dict(n_rollout_threads=args.n, buffer_size=args.steps, seed=args.seed,
-                data_chunk_length=10 if args.scenario == "tracking" else 8)
+                data_chunk_length=10 if args.scenario == "tracking" else 8,
+                **(SHOOT_FLAGS if args.scenario == SHOOT else {}))
 
 
 def run_jax(args, cfg_kw):
@@ -202,6 +433,8 @@ def run_jax(args, cfg_kw):
     if args.backend in ("pallas", "distilled"):
         pl.pallas_call = lambda *a, **k: orig(*a, **{**k, "interpret": True})
     try:
+        if args.scenario == SHOOT:
+            return run_jax_shoot(args, cfg_kw)
         return _run_jax(args, cfg_kw)
     finally:
         pl.pallas_call = orig
@@ -304,7 +537,7 @@ def run_port(args, cfg_kw, jax_params):
 def main(argv=None) -> int:
     import tempfile
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scenario", default="heading", choices=sorted(TARGETS))
+    ap.add_argument("--scenario", default="heading", choices=sorted(TARGETS) + [SHOOT])
     ap.add_argument("--n", type=int, default=3000)
     ap.add_argument("--steps", type=int, default=1000)
     ap.add_argument("--seed", type=int, default=1)
@@ -328,9 +561,21 @@ def main(argv=None) -> int:
                     "(under collect.reward_terms)")
     ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                     help="override a key of the heading scenario's config")
+    ap.add_argument("--opponent", default=None,
+                    help="selfplay_shoot_evadable: the opponent's actor (a JAX pickle or "
+                    "a port actor_<n>.pt) instead of the ego's initial actor")
+    ap.add_argument("--out", default=None, help="append the lines to this file too")
+    ap.add_argument("--compare", nargs=2, default=None, metavar=("A", "B"),
+                    help="print the counts of two files' first lines side by side")
     args = ap.parse_args(argv)
+    if args.compare:
+        a, b = (json.loads(open(p, encoding="utf-8").readline()) for p in args.compare)
+        for key, va, vb, ok in compare_lines(a, b):
+            print(json.dumps({"key": key, "a": va, "b": vb, "agree": ok}))
+        return 0
     args.set = {k: json.loads(v) for k, v in (kv.split("=", 1) for kv in args.set)}
-    args.backend = args.backend or ("distilled" if args.scenario == "tracking" else "pallas")
+    args.backend = args.backend or ("distilled" if args.scenario in ("tracking", SHOOT)
+                                    else "pallas")
     if args.jax_root:
         sys.path.insert(0, os.path.abspath(args.jax_root))
     cfg_kw = collect_config(args)
@@ -340,18 +585,23 @@ def main(argv=None) -> int:
         import neuralplane_tpu
         rows = [("jax", jout, jstats, jsec)]
         if args.package == "both":
-            rows.append(("port", *run_port(args, cfg_kw, args.jax_params)))
+            port = run_port_shoot if args.scenario == SHOOT else run_port
+            rows.append(("port", *port(args, cfg_kw, args.jax_params)))
         jrun.close()
     for name, out, stats, sec in rows:
         where = os.path.dirname(os.path.dirname(neuralplane_tpu.__file__)) \
             if name == "jax" else REPO
-        print(json.dumps({"package": name, "root": os.path.relpath(where, REPO),
+        line = json.dumps({"package": name, "root": os.path.relpath(where, REPO),
                           "scenario": args.scenario, "n": args.n, "steps": args.steps,
                           "backend": args.backend,
                           "seed": args.seed, "set": args.set,
                           "checkpoint": args.checkpoint, "collect": out,
-                          "reset": stats,
-                          "collect_s": round(sec, 1)}))
+                          "opponent": args.opponent, "reset": stats,
+                          "collect_s": round(sec, 1)})
+        print(line)
+        if args.out:
+            with open(args.out, "a", encoding="utf-8") as f:
+                f.write(line + "\n")
     return 0
 
 

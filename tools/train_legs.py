@@ -17,26 +17,32 @@ timed between synchronizations of the device: one line per episode in
 and the kernel wrappers' launch counts so far in the child (on the CPU no
 synchronization and a peak of 0). It logs one `metrics.jsonl` line per episode
 (`--log-interval 1` is required), an eval line after it on an eval
-episode, and then saves `state_ep<k>.pt` (the default `--save-interval
-1`). For each episode the tool waits for its checkpoint, copies it to
-`<out>/state_latest.pt`, appends the episode's lines to
+episode, and on a save episode (every `--save-interval`, default 1, from
+the leg's episode 0, and its last) then saves `state_ep<k>.pt`. For each
+save the tool waits for its checkpoint, copies it to
+`<out>/state_latest.pt`, appends the lines of the episodes up to it to
 `<out>/metrics.jsonl` and deletes the child's per-episode copies (a
 7.5e8-step heading run would leave 250 of them). So `<out>` never holds a
 line whose checkpoint is missing, and the next leg resumes exactly after
-the last line. A self-play run's pool entries (`actor_<n>.pt`, written
-before the episode's checkpoint) are copied to `<out>` as well, those that
-the episode's checkpoint names in its pool and no later one (the child may
-already have written the next episode's): the next leg's runner imports
-its pool from the directory of `--model-dir`.
+the last line. A self-play run's pool entries (`actor_<n>.pt`, one per
+save, written before the save's checkpoint) are copied to `<out>` as well,
+those that the checkpoint names in its pool and no later one (the child may
+already have written the next save's): the next leg's runner imports its
+pool from the directory of `--model-dir`.
 
-Stop rules, checked after each episode: its success share
+Stop rules, checked on each save only: the saved episode's success share
 `episodes_reached_target / (episodes_reached_target + episodes_failed)` is
-at least `--stop-success`, or `--budget-s` seconds have passed since the
-tool started (the combat envs log no success counts: only the budget
-stops them). The child is then killed (its process group). Otherwise the
-leg ends when the child does, at its `--num-env-steps`. A resumed leg
-numbers its episodes from 0 again, so its eval episodes (every
-`--eval-interval`) count from the leg's start.
+at least `--stop-success`; `--budget-s` seconds have passed since the tool
+started; or the next save would come after them, by the median episode's
+seconds (between two episode lines, less any eval) times the episodes to it
+plus the median eval's times the evals on the way (the combat envs log no
+success counts: only the budget stops them). The child is then killed (its
+process group). Otherwise the leg ends when the child does, at its
+`--num-env-steps`. A resumed leg numbers its episodes from 0 again, as the
+JAX runner does, so its evals (every `--eval-interval`) and its saves (and
+with them a self-play run's pool entries) count from the leg's start.
+`<out>/leg.json` records the run's episode numbers (1-based) of the leg's
+first episode, of each save and of each eval, and the medians it used.
 
 `--resume PREV` continues from a previous leg's `<PREV>/state_latest.pt`
 (or a finished run's merged directory, which has no `leg.json`: its
@@ -126,12 +132,52 @@ def resumed_totals(resume: str) -> tuple:
     return last["step"], last["wall_s"]
 
 
+def median(xs: list):
+    import statistics
+    return statistics.median(xs) if xs else None
+
+
+def episode_seconds(recs: list) -> tuple:
+    """(seconds per episode, seconds per eval) of a leg's records so far:
+    each episode's from the `wall_s` of the record before it, less the eval
+    between them (an eval record's `wall_s` less its episode's); the first
+    episode's from the leg's start."""
+    eps, evals, prev, after_eval = [], [], 0.0, 0.0
+    for rec in recs:
+        if is_episode_line(rec):
+            eps.append(rec["wall_s"] - prev - after_eval)
+            prev, after_eval = rec["wall_s"], 0.0
+        else:
+            evals.append(rec["wall_s"] - prev)
+            after_eval += evals[-1]
+    return eps, evals
+
+
+def budget_stop(elapsed: float, budget_s: float, taken: int, leg_episodes: int,
+                save_every: int, eval_every, ep_s: list, eval_s: list):
+    """Why a leg stops at a save after `taken` of its `leg_episodes`
+    episodes, `elapsed` seconds in, or None: the budget is spent, or the
+    next save would come after it by the median episode and eval."""
+    if elapsed >= budget_s:
+        return f"wall budget {budget_s:.0f} s"
+    upcoming = range(taken, min(taken + save_every, leg_episodes))
+    if not upcoming:
+        return None
+    evals = sum(1 for e in upcoming if eval_every and e % eval_every == 0 and e)
+    predicted = elapsed + len(upcoming) * median(ep_s) + evals * (median(eval_s) or 0.0)
+    if predicted > budget_s:
+        return (f"wall budget {budget_s:.0f} s: the next save, leg episode "
+                f"{upcoming[-1]}, predicted at {predicted:.1f} s")
+    return None
+
+
 def run_leg(out: str, train_argv: list, budget_s: float, stop_success: float,
             resume: str = None, poll_s: float = 1.0) -> dict:
     if _strip_arg(train_argv, "--log-interval")[1] != "1":
         raise SystemExit("train_legs: the train flags need --log-interval 1")
-    if _strip_arg(train_argv, "--save-interval")[1] not in (None, "1"):
-        raise SystemExit("train_legs: the train flags need --save-interval 1")
+    save_every = int(_strip_arg(train_argv, "--save-interval")[1] or 1)
+    eval_every = (int(_strip_arg(train_argv, "--eval-interval")[1] or 25)
+                  if "--use-eval" in train_argv else None)
     t_start = time.time()
     argv, _ = _strip_arg(train_argv, "--run-dir")
     argv, total = _strip_arg(argv, "--num-env-steps")
@@ -155,44 +201,74 @@ def run_leg(out: str, train_argv: list, budget_s: float, stop_success: float,
     child_metrics = os.path.join(run_dir, "metrics.jsonl")
     ckpts = os.path.join(run_dir, "checkpoints")
     taken, last, stopped, pos = 0, None, None, 0
+    # the leg's episodes in the whole run (1-based) and its saves and evals
+    cadence = {"save_interval": save_every, "eval_interval": eval_every,
+               "first_episode": None, "save_episodes": [], "eval_episodes": []}
+    per_episode = None   # steps of one episode, from the child's first line
+
+    def next_save() -> int:
+        """The leg episode (0-based) of the child's next checkpoint, if one
+        is there."""
+        ks = [int(n[len("state_ep"):-len(".pt")]) for n in os.listdir(ckpts)
+              if n.startswith("state_ep") and n.endswith(".pt")] if os.path.isdir(ckpts) else []
+        ks = [k for k in ks if k >= taken]
+        return min(ks) if ks else None
 
     def take_ready_lines() -> bool:
-        """Move the lines of every episode whose checkpoint exists to `out`
-        (with the pool entries its checkpoint names); True if a stop rule fired."""
-        nonlocal taken, last, stopped, pos
-        while os.path.exists(os.path.join(ckpts, f"state_ep{taken}.pt")):
-            # the episode's checkpoint follows all of its lines
+        """Move the lines of every episode up to the child's next checkpoint
+        to `out` (with the pool entries that checkpoint names); True if a
+        stop rule fired, which it checks on a checkpoint only."""
+        nonlocal taken, last, stopped, pos, per_episode
+        while (k := next_save()) is not None:
+            # the episode's checkpoint follows all of its lines and those before
             with open(child_metrics, encoding="utf-8") as f:
                 lines = [json.loads(ln) for ln in f.read().split("\n")[:-1] if ln.strip()]
-            end = pos + 1
-            while end < len(lines) and not is_episode_line(lines[end]):
+            end, seen = pos, 0
+            while end < len(lines) and (seen < k + 1 - taken
+                                        or not is_episode_line(lines[end])):
+                seen += is_episode_line(lines[end])
                 end += 1
-            ep_ckpt = os.path.join(ckpts, f"state_ep{taken}.pt")
+            if per_episode is None:
+                per_episode = lines[0]["step"]
+                cadence["first_episode"] = done_steps // per_episode + 1
+            ep_ckpt = os.path.join(ckpts, f"state_ep{k}.pt")
             copy_atomic(ep_ckpt, os.path.join(out, "state_latest.pt"))
             for name in pool_entries(ep_ckpt):
                 if not os.path.exists(os.path.join(out, name)):
                     copy_atomic(os.path.join(ckpts, name), os.path.join(out, name))
             with open(os.path.join(out, "metrics.jsonl"), "a", encoding="utf-8") as f:
                 for rec in lines[pos:end]:
-                    rec["step"] += done_steps
-                    rec["wall_s"] = round(rec["wall_s"] + done_wall, 2)
-                    f.write(json.dumps(rec) + "\n")
+                    if not is_episode_line(rec):
+                        cadence["eval_episodes"].append(rec["step"] // per_episode
+                                                        + cadence["first_episode"] - 1)
+                    out_rec = dict(rec, step=rec["step"] + done_steps,
+                                   wall_s=round(rec["wall_s"] + done_wall, 2))
+                    f.write(json.dumps(out_rec) + "\n")
             for name in os.listdir(ckpts):
                 if name.startswith("state_ep") and name.endswith(".pt"):
-                    k = int(name[len("state_ep"):-len(".pt")])
-                    if k <= taken:
+                    if int(name[len("state_ep"):-len(".pt")]) <= k:
                         os.remove(os.path.join(ckpts, name))
-            rec, elo = lines[pos], lines[end - 1].get("latest_elo")
-            taken, last, pos = taken + 1, lines[end - 1], end
+            cadence["save_episodes"].append(cadence["first_episode"] + k)
+            eps = [rec for rec in lines[:end] if is_episode_line(rec)]
+            rec, elo = eps[-1], lines[end - 1].get("latest_elo")
+            taken, pos = k + 1, end
+            last = dict(lines[end - 1], step=lines[end - 1]["step"] + done_steps,
+                        wall_s=round(lines[end - 1]["wall_s"] + done_wall, 2))
             share = success_share(rec)
-            print(f"[train_legs] episode {taken} step {rec['step']} success "
+            elapsed = time.time() - t_start
+            print(f"[train_legs] episode {taken} step {last['step']} success "
                   f"{share:.4f} reward {rec['average_episode_rewards']:.3f}"
                   + (f" elo {elo:.2f}" if elo is not None else "")
-                  + f" wall {time.time() - t_start:.1f} s", flush=True)
+                  + f" wall {elapsed:.1f} s", flush=True)
+            ep_s, eval_s = episode_seconds(lines[:end])
+            cadence.update(median_episode_s=round(median(ep_s), 3),
+                           median_eval_s=median(eval_s) and round(median(eval_s), 3))
             if share >= stop_success:
                 stopped = f"success share {share:.4f} >= {stop_success}"
-            elif time.time() - t_start >= budget_s:
-                stopped = f"wall budget {budget_s:.0f} s"
+            else:
+                stopped = budget_stop(elapsed, budget_s, taken,
+                                      (total - done_steps) // per_episode, save_every,
+                                      eval_every, ep_s, eval_s)
             if stopped:
                 return True
         return False
@@ -219,7 +295,7 @@ def run_leg(out: str, train_argv: list, budget_s: float, stop_success: float,
     leg = {"episodes": taken, "steps": last["step"] if last else done_steps,
            "wall_s": last["wall_s"] if last else done_wall,
            "leg_wall_s": round(time.time() - t_start, 2), "stopped": stopped,
-           "rc": rc, "resumed_from": resume, "argv": cmd[1:]}
+           "rc": rc, "resumed_from": resume, "argv": cmd[1:], **cadence}
     if last is not None:
         leg["last_success_share"] = success_share(last)
     with open(os.path.join(out, "leg.json"), "w", encoding="utf-8") as f:
