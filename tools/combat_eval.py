@@ -31,9 +31,9 @@ row and the agreement test (a pk row's tallies summed over its seeds):
 
 `jax-random` writes the random actor the JAX pk probe draws (row A5j flies
 it; the port's own `random` is another draw). `jax-probe pk|ladder
-[--backend distilled] [--to FILE] -- <flags>` runs the JAX package's
-probe on the CPU, its env on that aero backend (the Pallas kernel in
-interpret mode), and prints its last line. `curve` prints two self-play
+[--to FILE] -- <flags>` runs the JAX package's probe on the CPU, its env
+on "distilled" (the Pallas kernel in interpret mode), and prints its last
+line. `curve` prints two self-play
 runs' training records (the first episode
 and every 10th after it) and ELO evals side by side, up to the shorter
 run's last step, and each run's seconds per episode; `curve --verdict`
@@ -479,14 +479,15 @@ def shoot_tables(args) -> None:
 
 def jax_probe(args) -> None:
     """The JAX package's tools/{pk,ladder}_probe.py on the CPU with its
-    flags, its env on `--backend` (NEURALPLANE_AERO_BACKEND; "distilled"
-    runs the Pallas kernel in interpret mode); prints the tool's last line
-    and appends it, with the flags and seconds, to `--to`."""
+    flags, its env on "distilled" as the port's probes fly
+    (NEURALPLANE_AERO_BACKEND; the Pallas kernel in interpret mode); prints
+    the tool's last line and appends it, with the flags and seconds, to
+    `--to`."""
     import importlib.util
     import jax
     from jax.experimental import pallas as pl
     jax.config.update("jax_platforms", "cpu")
-    os.environ["NEURALPLANE_AERO_BACKEND"] = args.backend
+    os.environ["NEURALPLANE_AERO_BACKEND"] = "distilled"
     orig = pl.pallas_call
     pl.pallas_call = lambda *a, **k: orig(*a, **{**k, "interpret": True})
     path = os.path.join(REPO, "tools", f"{args.tool}_probe.py")
@@ -506,7 +507,7 @@ def jax_probe(args) -> None:
     if args.to:
         with open(args.to, "a", encoding="utf-8") as f:
             f.write(json.dumps({"tool": f"tools/{args.tool}_probe.py", "argv": args.flags,
-                                "backend": args.backend, "wall_s": round(time.time() - t0, 1),
+                                "backend": "distilled", "wall_s": round(time.time() - t0, 1),
                                 "last": last}) + "\n")
 
 
@@ -557,7 +558,6 @@ def main(argv=None) -> None:
     j.add_argument("--seed", type=int, default=0)
     q = sub.add_parser("jax-probe", help="the JAX package's probe on the CPU")
     q.add_argument("tool", choices=["pk", "ladder"])
-    q.add_argument("--backend", default="distilled", choices=["distilled", "stacked"])
     q.add_argument("--to", default=None, help="append the line to this file")
     q.add_argument("flags", nargs=argparse.REMAINDER, help="the probe's flags, after --")
     args = ap.parse_args(argv)
