@@ -6,7 +6,8 @@ on the CPU, at a tiny size:
   checkpoint names; the resumed leg restarts its save and eval cadence at
   its own episode 0, and `leg.json` records the run's episode of each save
   and each eval; the budget rule ends a leg at the last save that the
-  median episode says fits.
+  median episode says fits; `--export-actor` writes a missile actor (the
+  ShootTuple head) as the JAX pickle.
 - `tools/heading_collect_compare.py --scenario selfplay_shoot_evadable`:
   one collect of each package from the same JAX init actor, on
   "distilled" (the JAX kernel in interpret mode): the launch, hit, pk and
@@ -25,6 +26,12 @@ import sys
 
 import pytest
 import torch
+
+from neuralplane_tpu_torch.algorithms.networks import params_from_jax
+from neuralplane_tpu_torch.algorithms.ppo import PPOPolicy
+from neuralplane_tpu_torch.algorithms.rl_config import RLConfig
+from neuralplane_tpu_torch.envs import SingleCombatShootEnv
+from neuralplane_tpu_torch.utils.checkpoint import load_jax_pickle
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -122,6 +129,35 @@ def test_train_legs_cut_at_a_save_and_resumed(tmp_path):
     assert [r["step"] // 8 for r in recs if "eval_episodes_ended" in r] == \
         legs[0]["eval_episodes"] + legs[1]["eval_episodes"]
 
+    # the final actor exported as the JAX package's pickle: the missile
+    # env's ShootTuple head, as the runner built it
+    pkl = tmp_path / "actor.pkl"
+    subprocess.run(tool + ["--export-actor", str(leg1 / "state_latest.pt"), "--to", str(pkl)]
+                   + flags, cwd=REPO, check=True, capture_output=True, timeout=600)
+    state = torch.load(leg1 / "state_latest.pt", weights_only=True)
+    actor = {k[len("actor."):]: v for k, v in state["policy"].items() if k.startswith("actor.")}
+    assert any(k.startswith("head.shoot") for k in actor)
+    back = params_from_jax(load_jax_pickle(str(pkl)))
+    assert back.keys() == actor.keys()
+    for k, v in actor.items():
+        assert torch.equal(back[k], v), k
+
+
+def test_collect_tool_reads_a_port_pool_entry(tmp_path):
+    """A port pool entry (`actor_<n>.pt`) as the JAX actor tree the collect
+    tool's --opponent takes, at the run's network sizes."""
+    cc = load_tool("heading_collect_compare")
+    env = SingleCombatShootEnv(1, cc.SHOOT, aero_backend="stacked", device="cpu")
+    policy = PPOPolicy(RLConfig(use_prior=True), env.num_observation, env.num_actions,
+                       act_space=env.action_space, prior_slots=env.shoot_prior_slots,
+                       device="cpu")
+    want = {k: v.clone() for k, v in policy.actor.state_dict().items()}
+    torch.save(want, tmp_path / "actor_3.pt")
+    got = params_from_jax(cc.load_actor(str(tmp_path / "actor_3.pt")))
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+
 
 @pytest.mark.parametrize("case, overrides", [
     ("run", {}),
@@ -165,3 +201,24 @@ def test_shoot_collect_counts_and_event_term_match_jax(tmp_path, case, overrides
             assert rt["done_bad"]["event_sum"] < 0
         else:
             assert rt["rule"] in ("done_bad", None), (name, rt)
+
+
+@pytest.mark.parametrize("tool", ["heading_eval", "combat_eval"])
+def test_jax_evals_leave_the_backend_variable_as_they_found_it(tool, monkeypatch, tmp_path,
+                                                               capsys):
+    """The JAX evals choose their envs' backend through
+    NEURALPLANE_AERO_BACKEND; a caller in the same process (a test file
+    after another on one worker) gets its own value back."""
+    monkeypatch.delenv("NEURALPLANE_AERO_BACKEND", raising=False)
+    ckpt = os.path.join(REPO, "results", "shoot_evadable", "policy_checkpoint.pkl")
+    mod = load_tool(tool)
+    if tool == "heading_eval":
+        mod.main(["--package", "jax", "--env-name", "SingleCombatShoot", "--scenario",
+                  "selfplay_shoot_evadable", "--checkpoint", ckpt, "--n", "2", "--steps", "1",
+                  "--repeats", "1", "--backend", "stacked"])
+    else:
+        os.symlink(ckpt, tmp_path / "actor_final.pkl")
+        mod.main(["jax-probe", "pk", "--", "--ckpt-dir", str(tmp_path), "--ego", "final",
+                  "--opponent", "random", "--use-prior", "--num-envs", "2", "--steps", "2"])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert "NEURALPLANE_AERO_BACKEND" not in os.environ

@@ -487,6 +487,7 @@ def jax_probe(args) -> None:
     import jax
     from jax.experimental import pallas as pl
     jax.config.update("jax_platforms", "cpu")
+    prev = os.environ.get("NEURALPLANE_AERO_BACKEND")
     os.environ["NEURALPLANE_AERO_BACKEND"] = "distilled"
     orig = pl.pallas_call
     pl.pallas_call = lambda *a, **k: orig(*a, **{**k, "interpret": True})
@@ -502,6 +503,10 @@ def jax_probe(args) -> None:
             mod.main()
     finally:
         sys.argv, pl.pallas_call = argv, orig
+        if prev is None:
+            os.environ.pop("NEURALPLANE_AERO_BACKEND", None)
+        else:
+            os.environ["NEURALPLANE_AERO_BACKEND"] = prev
     last = json.loads(buf.getvalue().strip().splitlines()[-1])
     print(json.dumps(last))
     if args.to:

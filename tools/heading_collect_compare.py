@@ -338,6 +338,7 @@ def load_actor(path: str):
         env = SingleCombatShootEnv(num_envs=1, config=SHOOT, aero_backend="stacked",
                                    device="cpu")
         policy = PPOPolicy(RLConfig(use_prior=True), env.num_observation, env.num_actions,
+                           act_space=env.action_space, prior_slots=env.shoot_prior_slots,
                            device="cpu")
         policy.actor.load_state_dict(load_checkpoint(path))
         return params_to_jax(policy.actor)

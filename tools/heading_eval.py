@@ -282,44 +282,53 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if args.success and args.env_name != "Control":
         ap.error("--success counts the Control env's targets")
-    env, runner_cls, cfg_cls = (jax_evals if args.package == "jax" else port_evals)(args)
-    t0 = time.perf_counter()
-    # the missile policies were trained with the Beta launch prior on
-    cfg = cfg_cls(use_prior=args.env_name.endswith("Shoot"))
-    shots = counts = None
-    with tempfile.TemporaryDirectory() as run_dir:
-        runner = runner_cls(env, cfg, run_dir=run_dir, model_dir=args.checkpoint)
-        try:
-            if args.env_name in COMBAT:
-                values, shots = (jax_combat_values if args.package == "jax"
-                                 else port_combat_values)(args, env, runner)
-            elif args.success:
-                values, counts = (jax_control_values if args.package == "jax"
-                                  else port_control_values)(args, env, runner)
-            else:
-                values = [runner.eval(args.steps)["eval_average_episode_rewards"]
-                          for _ in range(args.repeats)]
-            log_std = actor_log_std(args, runner)
-        finally:
-            runner.close()
-    extra = {} if log_std is None else {"log_std": log_std}
-    if shots is not None and args.env_name.endswith("Shoot"):
-        extra.update({"launches_per_step": [s[0] for s in shots],
-                      "hits_per_step": [s[1] for s in shots]})
-    if counts is not None:
-        extra.update({"reached": [c[0] for c in counts], "failed": [c[1] for c in counts],
-                      "success_share": [c[0] / max(1, c[0] + c[1]) for c in counts]})
-    print(json.dumps({"package": args.package, "checkpoint": os.path.relpath(args.checkpoint, REPO),
-                      "env_name": args.env_name, "model": args.model,
-                      "scenario": args.scenario, "n": args.n, "steps": args.steps,
-                      "backend": args.backend, "interpret": args.interpret,
-                      "device": args.device if args.package == "port" else "cpu",
-                      "noise_scale": env.config.noise_scale,
-                      ("ego_mean_reward_per_agent_step" if args.env_name in COMBAT
-                       else "eval_average_episode_rewards"): values,
-                      "mean": sum(values) / len(values), **extra,
-                      "seconds": time.perf_counter() - t0}))
+    # the JAX envs read their backend from NEURALPLANE_AERO_BACKEND, which
+    # jax_evals sets: an in-process caller gets its own value back
+    prev = os.environ.get("NEURALPLANE_AERO_BACKEND")
+    try:
+        env, runner_cls, cfg_cls = (jax_evals if args.package == "jax" else port_evals)(args)
+        t0 = time.perf_counter()
+        # the missile policies were trained with the Beta launch prior on
+        cfg = cfg_cls(use_prior=args.env_name.endswith("Shoot"))
+        shots = counts = None
+        with tempfile.TemporaryDirectory() as run_dir:
+            runner = runner_cls(env, cfg, run_dir=run_dir, model_dir=args.checkpoint)
+            try:
+                if args.env_name in COMBAT:
+                    values, shots = (jax_combat_values if args.package == "jax"
+                                     else port_combat_values)(args, env, runner)
+                elif args.success:
+                    values, counts = (jax_control_values if args.package == "jax"
+                                      else port_control_values)(args, env, runner)
+                else:
+                    values = [runner.eval(args.steps)["eval_average_episode_rewards"]
+                              for _ in range(args.repeats)]
+                log_std = actor_log_std(args, runner)
+            finally:
+                runner.close()
+        extra = {} if log_std is None else {"log_std": log_std}
+        if shots is not None and args.env_name.endswith("Shoot"):
+            extra.update({"launches_per_step": [s[0] for s in shots],
+                          "hits_per_step": [s[1] for s in shots]})
+        if counts is not None:
+            extra.update({"reached": [c[0] for c in counts], "failed": [c[1] for c in counts],
+                          "success_share": [c[0] / max(1, c[0] + c[1]) for c in counts]})
+        print(json.dumps({"package": args.package, "checkpoint": os.path.relpath(args.checkpoint, REPO),
+                          "env_name": args.env_name, "model": args.model,
+                          "scenario": args.scenario, "n": args.n, "steps": args.steps,
+                          "backend": args.backend, "interpret": args.interpret,
+                          "device": args.device if args.package == "port" else "cpu",
+                          "noise_scale": env.config.noise_scale,
+                          ("ego_mean_reward_per_agent_step" if args.env_name in COMBAT
+                           else "eval_average_episode_rewards"): values,
+                          "mean": sum(values) / len(values), **extra,
+                          "seconds": time.perf_counter() - t0}))
 
+    finally:
+        if prev is None:
+            os.environ.pop("NEURALPLANE_AERO_BACKEND", None)
+        else:
+            os.environ["NEURALPLANE_AERO_BACKEND"] = prev
 
 if __name__ == "__main__":
     main()

@@ -355,8 +355,10 @@ def export_actor(state_path: str, to: str, train_argv: list) -> None:
     args = get_parser().parse_args(train_argv)
     args.device, args.n_rollout_threads = "cpu", 1
     env = make_env(args)
+    # the policy as the runner builds it (a missile env's ShootTuple head)
     policy = PPOPolicy(args_to_config(args), env.num_observation, env.num_actions,
-                       device="cpu")
+                       act_space=getattr(env, "action_space", None),
+                       prior_slots=getattr(env, "shoot_prior_slots", (11, 13)), device="cpu")
     policy.load_state_dict(load_checkpoint(state_path)["policy"])
     save_actor_pickle(to, params_to_jax(policy.actor))
     print(f"[train_legs] wrote {to} ({os.path.getsize(to)} bytes) from {state_path}")
@@ -393,17 +395,21 @@ def summarize_leg(out: str) -> dict:
     `metrics.jsonl`: seconds per episode (differences of `wall_s`, the
     leg's first from the resumed total), collect ms per collected step,
     update seconds, agent-steps/s, the collect's and the update's shares of
-    the episodes' time, peak MiB and the launch counts at the leg's end."""
+    the episodes' time, peak MiB, the launch counts at the leg's end and
+    how many episodes added each count; with evals, the seconds of each
+    episode without them and of each eval."""
     import statistics
     with open(os.path.join(out, "leg.json"), encoding="utf-8") as f:
         leg = json.load(f)
+    # the child may have finished episodes past the leg's last checkpoint
     phases = [json.loads(ln) for ln in open(os.path.join(out, "phases.jsonl"),
-                                            encoding="utf-8") if ln.strip()]
+                                            encoding="utf-8") if ln.strip()][:leg["episodes"]]
     metrics = os.path.join(out, "metrics.jsonl")
     if not os.path.exists(metrics):   # a leg copied beside its run's merged lines
         metrics = os.path.join(os.path.dirname(out.rstrip("/")), "metrics.jsonl")
     with open(metrics, encoding="utf-8") as f:
-        recs = [rec for rec in map(json.loads, filter(str.strip, f)) if is_episode_line(rec)]
+        all_lines = [json.loads(ln) for ln in f if ln.strip()]
+    recs = [rec for rec in all_lines if is_episode_line(rec)]
     argv = leg["argv"]
     n_envs = int(argv[argv.index("--n-rollout-threads") + 1])
     buffer = int(argv[argv.index("--buffer-size") + 1])
@@ -416,13 +422,28 @@ def summarize_leg(out: str) -> dict:
     else:
         before = 0.0
     walls = [before] + [rec["wall_s"] for rec in lines]
+    # this leg's lines, evals included, their wall from the leg's start
+    first = all_lines.index(lines[0])
+    last = all_lines.index(lines[-1]) + 1
+    while last < len(all_lines) and not is_episode_line(all_lines[last]):
+        last += 1
+    leg_lines = [dict(r, wall_s=r["wall_s"] - before) for r in all_lines[first:last]]
     episode_s = [round(b - a, 2) for a, b in zip(walls, walls[1:])]
     collect = [ph["collect_s"] for ph in phases]
     update = [ph["update_s"] for ph in phases]
+    # kernel launches between episode ends (an eval's ride with the next)
+    totals = [0] + [sum(ph["launches"].values()) for ph in phases]
+    steps = {}
+    for a, b in zip(totals, totals[1:]):
+        steps[str(b - a)] = steps.get(str(b - a), 0) + 1
 
     def spread(xs, scale=1.0):
         return [round(min(xs) * scale, 4), round(statistics.median(xs) * scale, 4),
                 round(max(xs) * scale, 4)]
+    evals = {}
+    if any(not is_episode_line(r) for r in leg_lines):
+        ep_s, eval_s = episode_seconds(leg_lines)
+        evals = {"episode_s_less_evals": spread(ep_s), "eval_s": spread(eval_s)}
     return {"leg": os.path.basename(out.rstrip("/")), "episodes": leg["episodes"],
             "steps": [lines[0]["step"], lines[-1]["step"]], "leg_wall_s": leg["leg_wall_s"],
             "episode_s": spread(episode_s), "collect_ms_per_step": spread(collect, 1e3 / buffer),
@@ -433,7 +454,7 @@ def summarize_leg(out: str) -> dict:
             "update_share": round(sum(update) / sum(episode_s), 3),
             "collect_s": round(sum(collect), 2), "update_s_total": round(sum(update), 2),
             "peak_mib": max(ph["peak_mib"] for ph in phases),
-            "launches": phases[-1]["launches"]}
+            "launches": phases[-1]["launches"], "launches_between_episodes": steps, **evals}
 
 
 def main(argv=None) -> int:
