@@ -564,10 +564,9 @@ def main(argv=None) -> None:
     q = sub.add_parser("jax-probe", help="the JAX package's probe on the CPU")
     q.add_argument("tool", choices=["pk", "ladder"])
     q.add_argument("--to", default=None, help="append the line to this file")
-    q.add_argument("flags", nargs=argparse.REMAINDER, help="the probe's flags, after --")
+    q.add_argument("flags", nargs="*", help="the probe's flags, after --")
     args = ap.parse_args(argv)
     if args.cmd == "jax-probe":
-        args.flags = [f for f in args.flags if f != "--"]
         return jax_probe(args)
     if args.cmd == "curve" and args.verdict:
         return shoot_tables(args)
