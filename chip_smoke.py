@@ -67,8 +67,10 @@ Phases, each reported on its own line:
      evadable variants (missile state, ammo, cooldown and counts);
  24. 1v1 missile self-play training at scripts/train_shoot.sh's
      configuration (PPO, the ShootTuple head with its Beta launch prior)
-     through the CLI for one episode, then one stochastic ELO eval at 100
-     steps; one collect step profiled;
+     through the CLI for one episode cut to a buffer of 496 of its 1000
+     steps (results/shoot_evadable_torch trains the same runner and env at
+     full depth), then one stochastic ELO eval at 100 steps; one collect
+     step profiled;
  25. 2v2 missile MAPPO self-play at scripts/train_multiplecombat_shoot.sh's
      configuration, the same way; the MAPPO policy on the card against its
      CPU copy;
@@ -86,7 +88,7 @@ Phases, each reported on its own line:
  28. train_surrogate on one lo-fi table at the reference recipe for 100
      epochs, and ops/lofi.py at 10^6 points on the card against the CPU;
  29. scripts/render.py in-process in each mode (ppo and pid 500 frames,
-     planning 200, 1v1 missile combat five episodes of 300): ACMI grammar,
+     planning 100, 1v1 missile combat three episodes of 300): ACMI grammar,
      channels, metrics, the kernel launches per frame;
  30. the heading and 1v1 missile actors exported (utils/export.py,
      scripts/export.py) and run in a torch-only process against the live
@@ -2173,7 +2175,7 @@ def selfplay_run(argv):
 
 SHOOT_TRAIN_ARGS = ["--use-selfplay", "--use-prior", "--selfplay-algorithm", "fsp",
                     "--n-choose-opponents", "1", "--elo-tie-band", "50", "--use-eval",
-                    "--eval-interval", "10", "--eval-stochastic", "--buffer-size", "1000",
+                    "--eval-interval", "10", "--eval-stochastic", "--buffer-size", "496",
                     "--num-mini-batch", "5", "--ppo-epoch", "16", "--lr", "3e-4",
                     "--gamma", "0.99", "--entropy-coef", "1e-3", "--max-grad-norm", "2",
                     "--data-chunk-length", "8", "--log-interval", "1", "--save-interval", "20",
@@ -2184,13 +2186,14 @@ def phase_shoot_train(table, team: bool, phase: int) -> None:
     """Missile self-play training on the card at a committed run's
     configuration, cut to one episode: scripts/train_shoot.sh (1v1, 1000
     envs, PPO) or, with `team`, scripts/train_multiplecombat_shoot.sh (2v2,
-    500 envs, MAPPO): buffer 1000, chunks of 8, 5 minibatches, 16 epochs,
+    500 envs, MAPPO): chunks of 8, 5 minibatches, 16 epochs,
     lr 3e-4, entropy 1e-3, max grad norm 2, FSP, one opponent, tie band 50,
     the Beta launch prior, stochastic ELO eval (cut to ELO_EVAL_STEPS
-    steps). The collect launches nlplant_distilled 11 (1v1) or 3 (team)
-    times per step, the run's reset once more, env_step never; the team's
-    MAPPO policy on the card is held against its CPU copy."""
-    T, per_step = 1000, (3 if team else 11)
+    steps); the buffer cut to 496 steps (62 chunks of 8). The collect
+    launches nlplant_distilled 11 (1v1) or 3 (team) times per step, the
+    run's reset once more, env_step never; the team's MAPPO policy on the
+    card is held against its CPU copy."""
+    T, per_step = 496, (3 if team else 11)
     if team:
         n, what = 500, "MAPPO 2v2 MultipleCombatShootEnv(multiple_selfplay_shoot, distilled)"
         argv = ["--env-name", "MultipleCombatShoot", "--scenario-name",
@@ -2432,8 +2435,9 @@ def phase_tables(phase=28):
 # CPU, 3 of seeds 0-3 launched within 300 frames; the card's seed 0 did not
 # in 2000), and a missile flies 200 frames, so each episode shows its
 # launches and their removals.
-RENDER_FRAMES = {"ppo": 500, "pid": 500, "planning": 200, "combat": 300}
-COMBAT_SEEDS = 5
+RENDER_FRAMES = {"ppo": 500, "pid": 500, "planning": 100, "combat": 300}
+# seeds 1 and 2 fly missiles to their end
+COMBAT_SEEDS = 3
 # one ACMI object line: id,T=lon|lat|alt|roll|pitch|yaw,Name=..,Color=..[,Type=..]
 ACMI_OBJECT = re.compile(r"^\d+,T=(-?[0-9.e+-]+\|){5}-?[0-9.e+-]+,Name=\w+,Color=\w+"
                          r"(,Type=Missile)?$")
