@@ -592,11 +592,13 @@ def phase_main(n, steps, table, backend="distilled", key="env_step", phase=6):
 
 def device_rows(prof):
     """(device us, name, count) of the device's own events (kernels, copies),
-    largest first; the host ops that launched them are left out, so that no
-    time is counted twice."""
+    largest first; the host ops that launched them and the device-side
+    copies of `record_function` ranges (the program's spans) are left out,
+    so that no time is counted twice."""
     from torch.autograd import DeviceType
     rows = [(e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
     return sorted(rows, reverse=True)
 
 

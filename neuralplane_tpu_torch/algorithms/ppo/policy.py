@@ -25,6 +25,7 @@ from .. import networks as nets
 from ..heads import HeadActor
 from ..rl_config import RLConfig
 from ..utils.spaces import Box, ShootTuple
+from ...utils.profiling import span
 
 
 class PPOPolicy(nn.Module):
@@ -77,10 +78,11 @@ class PPOPolicy(nn.Module):
     # ---- rollout ----
     def get_actions(self, obs, h_actor, h_critic, masks, generator: torch.Generator):
         """Returns (values, actions, action_log_probs, h_actor, h_critic)."""
-        dist, h_actor = self.actor.dist_step(obs, h_actor, masks)
-        actions = dist.sample(generator)
-        logp = dist.log_prob(actions)
-        values, h_critic = self.critic.step(obs, h_critic, masks)
+        with span("policy.act"):
+            dist, h_actor = self.actor.dist_step(obs, h_actor, masks)
+            actions = dist.sample(generator)
+            logp = dist.log_prob(actions)
+            values, h_critic = self.critic.step(obs, h_critic, masks)
         return values, actions, logp, h_actor, h_critic
 
     def get_values(self, obs, h_critic, masks) -> torch.Tensor:

@@ -30,6 +30,7 @@ from typing import Dict, Iterable, Optional, Tuple
 import torch
 
 from ...parallel.mesh import Mesh, all_reduce_mean
+from ...utils.profiling import span
 from ..networks import params_from_jax
 from ..rl_config import RLConfig
 from .buffer import RolloutBatch, compute_advantages, compute_returns, make_chunks
@@ -96,17 +97,20 @@ class PPOTrainer:
     def _backward(self, sample: Tuple) -> Dict[str, torch.Tensor]:
         """The loss's gradients in the parameters' `.grad`, averaged over the
         mesh in one all-reduce; returns the loss's metrics."""
+        cuda = sample[0].is_cuda
         self.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = self._loss(sample)
-        loss.backward()
-        all_reduce_mean([p.grad for p in self.policy.parameters()], self.mesh)
+        with span("trainer.forward", device=cuda):
+            loss, metrics = self._loss(sample)
+        with span("trainer.backward", device=cuda):
+            loss.backward()
+            all_reduce_mean([p.grad for p in self.policy.parameters()], self.mesh)
         return metrics
 
     def _update_minibatch(self, sample: Tuple) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
         metrics = self._backward(sample)
         norms = {}
-        with torch.no_grad():
+        with span("trainer.optimizer", device=sample[0].is_cuda), torch.no_grad():
             for name, net in (("actor", self.policy.actor), ("critic", self.policy.critic)):
                 grads = [p.grad for p in net.parameters()]
                 norm = _global_norm(grads)
@@ -116,7 +120,7 @@ class PPOTrainer:
                     for g in grads:
                         g.mul_(scale)
                 norms[f"{name}_grad_norm"] = norm
-        self.optimizer.step()
+            self.optimizer.step()
         self.step += 1
         return {**metrics, **norms}
 
@@ -147,25 +151,26 @@ class PPOTrainer:
         """One PPO update from a rollout batch; returns the metrics averaged
         over minibatches, then over epochs (then over the mesh's ranks), as
         0-d tensors on the device."""
-        cfg = self.cfg
-        chunks = self.chunks(batch)
-        num_chunks = chunks[0].shape[0]
-        mb_size = num_chunks // cfg.num_mini_batch
-        used = mb_size * cfg.num_mini_batch
+        with span("trainer.update"):
+            cfg = self.cfg
+            chunks = self.chunks(batch)
+            num_chunks = chunks[0].shape[0]
+            mb_size = num_chunks // cfg.num_mini_batch
+            used = mb_size * cfg.num_mini_batch
 
-        epochs = []
-        for _ in range(cfg.ppo_epoch):
-            perm = self._permutation(num_chunks, generator)[:used]
-            # sorted within each minibatch: the loss is a mean, so the order
-            # of rows is irrelevant; the random partition is unchanged
-            mb_idx = perm.reshape(cfg.num_mini_batch, mb_size).sort(dim=1).values
-            mbs = [self._update_minibatch(self.gather_minibatch(chunks, idx))
-                   for idx in mb_idx]
-            epochs.append({k: torch.stack([m[k] for m in mbs]).mean() for k in mbs[0]})
-        names = list(epochs[0])
-        values = torch.stack([torch.stack([e[k] for e in epochs]).mean() for k in names])
-        all_reduce_mean([values], self.mesh)
-        return dict(zip(names, values.unbind()))
+            epochs = []
+            for _ in range(cfg.ppo_epoch):
+                perm = self._permutation(num_chunks, generator)[:used]
+                # sorted within each minibatch: the loss is a mean, so the order
+                # of rows is irrelevant; the random partition is unchanged
+                mb_idx = perm.reshape(cfg.num_mini_batch, mb_size).sort(dim=1).values
+                mbs = [self._update_minibatch(self.gather_minibatch(chunks, idx))
+                       for idx in mb_idx]
+                epochs.append({k: torch.stack([m[k] for m in mbs]).mean() for k in mbs[0]})
+            names = list(epochs[0])
+            values = torch.stack([torch.stack([e[k] for e in epochs]).mean() for k in names])
+            all_reduce_mean([values], self.mesh)
+            return dict(zip(names, values.unbind()))
 
 
 def train_state_from_jax(ts, trainer: PPOTrainer) -> None:

@@ -44,6 +44,7 @@ from ..ops.aero import (DistilledAeroWeights, GroupedAeroWeights,
 from ..ops.step_cuda import env_step
 from ..ops.task import COND_NAMES
 from ..utils.config import EnvConfig, load_config
+from ..utils.profiling import span
 from .tasks import TASKS
 from .tasks.base import add_sensor_noise
 from .types import EnvState, StepOutput
@@ -122,8 +123,13 @@ class Env:
              ) -> Tuple[EnvState, StepOutput]:
         if self.generator is None:
             raise RuntimeError("call reset(seed) before step()")
-        if self.fused:
-            return self._step_fused(state, action)
+        with span("env.step"):
+            if self.fused:
+                return self._step_fused(state, action)
+            return self._step_portable(state, action)
+
+    def _step_portable(self, state: EnvState, action: torch.Tensor
+                       ) -> Tuple[EnvState, StepOutput]:
         state = self._masked_reset(state)
         if self.config.reuse_step_xdot:
             mstate, xdot = self.model.update_with_xdot(state.model, action)

@@ -33,6 +33,7 @@ import torch
 from ..algorithms.ppo.buffer import RolloutBatch
 from ..algorithms.rl_config import RLConfig
 from ..parallel.mesh import Mesh, all_reduce_sum
+from ..utils.profiling import span
 from .base import Runner
 
 
@@ -96,7 +97,6 @@ class F16SimRunner(Runner):
             bad_masks=1.0 - bad_env.float())
         return new_carry, step_data
 
-    @torch.no_grad()
     def collect(self, carry: RolloutCarry
                 ) -> Tuple[RolloutCarry, RolloutBatch, Tuple[torch.Tensor, Dict]]:
         """Roll buffer_size steps; returns (carry, batch, (episodes_finished,
@@ -106,43 +106,44 @@ class F16SimRunner(Runner):
         chunk: the rnn states are recorded once per chunk (the input state
         of the chunk's first step, all the update reads), so the batch's
         rnn_states_* are [T/L, n, layers, H]."""
-        T, L = self.cfg.buffer_size, self.cfg.data_chunk_length
-        if T % L != 0:
-            raise ValueError(f"buffer_size {T} % data_chunk_length {L} != 0")
-        n, dev = self.n, self.device
+        with span("runner.collect"), torch.no_grad():
+            T, L = self.cfg.buffer_size, self.cfg.data_chunk_length
+            if T % L != 0:
+                raise ValueError(f"buffer_size {T} % data_chunk_length {L} != 0")
+            n, dev = self.n, self.device
 
-        def buf(rows, *shape):
-            return torch.empty((rows, n, *shape), dtype=torch.float32, device=dev)
-        obs = buf(T + 1, carry.obs.shape[1])
-        actions = buf(T, self.policy.spec.act_dim)
-        rewards, logp = buf(T, 1), buf(T, 1)
-        masks, bad_masks, values = buf(T + 1, 1), buf(T + 1, 1), buf(T + 1, 1)
-        h0_a = buf(T // L, *carry.h_actor.shape[1:])
-        h0_c = buf(T // L, *carry.h_critic.shape[1:])
-        done_total = torch.zeros((), dtype=torch.int64, device=dev)
-        bad_total = torch.zeros((), dtype=torch.int64, device=dev)
-        counters: Dict[str, torch.Tensor] = {}
+            def buf(rows, *shape):
+                return torch.empty((rows, n, *shape), dtype=torch.float32, device=dev)
+            obs = buf(T + 1, carry.obs.shape[1])
+            actions = buf(T, self.policy.spec.act_dim)
+            rewards, logp = buf(T, 1), buf(T, 1)
+            masks, bad_masks, values = buf(T + 1, 1), buf(T + 1, 1), buf(T + 1, 1)
+            h0_a = buf(T // L, *carry.h_actor.shape[1:])
+            h0_c = buf(T // L, *carry.h_critic.shape[1:])
+            done_total = torch.zeros((), dtype=torch.int64, device=dev)
+            bad_total = torch.zeros((), dtype=torch.int64, device=dev)
+            counters: Dict[str, torch.Tensor] = {}
 
-        for c in range(T // L):
-            h0_a[c], h0_c[c] = carry.h_actor, carry.h_critic
-            for t in range(c * L, (c + 1) * L):
-                carry, d = self._collect_step(carry)
-                obs[t], actions[t], rewards[t] = d["obs"], d["actions"], d["rewards"]
-                masks[t], bad_masks[t] = d["masks"], d["bad_masks"]
-                logp[t], values[t] = d["action_log_probs"], d["value_preds"]
-                done_total += d["done_count"]
-                bad_total += d["bad_count"]
-                for k, v in d["info"].items():
-                    counters[k] = v + counters[k] if k in counters else v
-        obs[T], masks[T], bad_masks[T] = carry.obs, carry.masks, carry.bad_masks
-        values[T] = self.policy.get_values(carry.obs, carry.h_critic, carry.masks)
-        batch = RolloutBatch(obs=obs, actions=actions, rewards=rewards, masks=masks,
-                             bad_masks=bad_masks, action_log_probs=logp,
-                             value_preds=values, rnn_states_actor=h0_a,
-                             rnn_states_critic=h0_c)
-        counters["episodes_reached_target"] = done_total
-        counters["episodes_failed"] = bad_total
-        return carry, batch, (done_total + bad_total, counters)
+            for c in range(T // L):
+                h0_a[c], h0_c[c] = carry.h_actor, carry.h_critic
+                for t in range(c * L, (c + 1) * L):
+                    carry, d = self._collect_step(carry)
+                    obs[t], actions[t], rewards[t] = d["obs"], d["actions"], d["rewards"]
+                    masks[t], bad_masks[t] = d["masks"], d["bad_masks"]
+                    logp[t], values[t] = d["action_log_probs"], d["value_preds"]
+                    done_total += d["done_count"]
+                    bad_total += d["bad_count"]
+                    for k, v in d["info"].items():
+                        counters[k] = v + counters[k] if k in counters else v
+            obs[T], masks[T], bad_masks[T] = carry.obs, carry.masks, carry.bad_masks
+            values[T] = self.policy.get_values(carry.obs, carry.h_critic, carry.masks)
+            batch = RolloutBatch(obs=obs, actions=actions, rewards=rewards, masks=masks,
+                                 bad_masks=bad_masks, action_log_probs=logp,
+                                 value_preds=values, rnn_states_actor=h0_a,
+                                 rnn_states_critic=h0_c)
+            counters["episodes_reached_target"] = done_total
+            counters["episodes_failed"] = bad_total
+            return carry, batch, (done_total + bad_total, counters)
 
     # ---- main loop ----
     def run(self) -> Dict[str, float]:
