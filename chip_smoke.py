@@ -1107,31 +1107,41 @@ def profile_calls(fn, reps: int):
     return busy, wall, sum(r[2] for r in rows) / reps, top
 
 
-def profile_training(runner, phase=15, steps=20):
-    """Where a training episode's time goes, after the counted run: 20
-    collect steps, and one epoch of the update (its 5 minibatches) on the
-    last collected batch. Device busy, idle share and device launches per
-    call, from torch.profiler."""
-    carry = [runner.init_carry(runner.next_seed())]
+def short_collect(runner, steps: int, carry: list):
+    """A callable that runs one collect of `steps` steps from carry[0] (the
+    runner's own collect, past a timing subclass) and keeps its carry."""
+    def collect():
+        cfg = runner.cfg
+        runner.cfg = cfg.replace(buffer_size=steps, data_chunk_length=steps)
+        try:
+            carry[0] = super(type(runner), runner).collect(carry[0])[0]
+        finally:
+            runner.cfg = cfg
+    return collect
 
-    @torch.no_grad()
-    def collect_step():
-        carry[0] = runner._collect_step(carry[0])[0]
+
+def profile_training(runner, phase=15, steps=20):
+    """Where a training episode's time goes, after the counted run: a
+    collect of 20 steps (the act and bookkeeping replayed from their CUDA
+    graphs), and one epoch of the update (its 5 minibatches) on the last
+    collected batch. Device busy, idle share and device launches per
+    collect step and per epoch, from torch.profiler."""
+    collect = short_collect(runner, steps, [runner.init_carry(runner.next_seed())])
     cfg = runner.trainer.cfg
     runner.trainer.cfg = cfg.replace(ppo_epoch=1)
     try:
-        for name, fn, reps in (("collect step", collect_step, steps),
-                               ("update epoch (5 minibatches)",
-                                lambda: runner.trainer.train(runner.last_batch,
-                                                             runner.generator), 1)):
-            busy, wall, launches, top = profile_calls(fn, reps)
+        for name, fn, per in (("collect step", collect, steps),
+                              ("update epoch (5 minibatches)",
+                               lambda: runner.trainer.train(runner.last_batch,
+                                                            runner.generator), 1)):
+            busy, wall, launches, top = profile_calls(fn, 1)
             if not busy:
                 log(f"phase {phase} profile {name}: the profiler saw no device time "
                     "(not measured)")
                 continue
-            log(f"phase {phase} profile {name}: device busy {busy:.1f} us of "
-                f"{wall:.1f} us wall, idle share {1 - busy / wall:.3f}, "
-                f"{launches:g} device launches; {top}")
+            log(f"phase {phase} profile {name}: device busy {busy / per:.1f} us of "
+                f"{wall / per:.1f} us wall, idle share {1 - busy / wall:.3f}, "
+                f"{launches / per:g} device launches; per {per} steps: {top}")
     finally:
         runner.trainer.cfg = cfg
 
@@ -1372,15 +1382,12 @@ def phase_planning_train(table, phase=17):
 
 
 def profile_planning_step(runner, phase=17):
-    """One high-level collect step under torch.profiler (after the counted
-    run), and one env step under CUDA's sync debug mode: the inner loop must
-    not make the host wait for the card."""
+    """One high-level collect step (a collect of one step) under
+    torch.profiler (after the counted run), and one env step under CUDA's
+    sync debug mode: the inner loop must not make the host wait for the
+    card."""
     carry = [runner.init_carry(runner.next_seed())]
-
-    @torch.no_grad()
-    def collect_step():
-        carry[0] = runner._collect_step(carry[0])[0]
-    busy, wall, launches, top = profile_calls(collect_step, 1)
+    busy, wall, launches, top = profile_calls(short_collect(runner, 1, carry), 1)
     if busy:
         log(f"phase {phase} profile one high-level collect step: device busy {busy:.1f} us "
             f"of {wall:.1f} us wall, idle share {1 - busy / wall:.3f}, {launches:g} device "

@@ -79,10 +79,15 @@ class PPOPolicy(nn.Module):
     def get_actions(self, obs, h_actor, h_critic, masks, generator: torch.Generator):
         """Returns (values, actions, action_log_probs, h_actor, h_critic)."""
         with span("policy.act"):
-            dist, h_actor = self.actor.dist_step(obs, h_actor, masks)
-            actions = dist.sample(generator)
-            logp = dist.log_prob(actions)
-            values, h_critic = self.critic.step(obs, h_critic, masks)
+            return self.sample_actions(obs, h_actor, h_critic, masks, generator)
+
+    def sample_actions(self, obs, h_actor, h_critic, masks, generator: torch.Generator):
+        """`get_actions` without its span: the work F16SimRunner's collect
+        captures into a CUDA graph."""
+        dist, h_actor = self.actor.dist_step(obs, h_actor, masks)
+        actions = dist.sample(generator)
+        logp = dist.log_prob(actions)
+        values, h_critic = self.critic.step(obs, h_critic, masks)
         return values, actions, logp, h_actor, h_critic
 
     def get_values(self, obs, h_critic, masks) -> torch.Tensor:

@@ -301,18 +301,117 @@ def test_grouped_totals_kernel_ragged_sizes_on_card(n):
     assert torch.equal(got, tgrp.aero_totals(w, feats)[:, :n])
 
 
-def card_runner(tmp_path, n=64, mesh=None, **over):
-    """A small F16SimRunner on the card (distilled backend, the fused step)."""
+def card_runner(tmp_path, n=64, mesh=None, env_class=None, **over):
+    """A small F16SimRunner on the card (distilled backend, the fused step);
+    `over` sets RLConfig fields, `env_class` a ControlEnv subclass."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     from neuralplane_tpu_torch.algorithms.rl_config import RLConfig
     from neuralplane_tpu_torch.envs import ControlEnv
     from neuralplane_tpu_torch.runner import F16SimRunner
-    cfg = RLConfig(buffer_size=8, data_chunk_length=8, num_mini_batch=2, ppo_epoch=2,
-                   hidden_sizes=(32, 32), act_hidden_sizes=(32,),
-                   recurrent_hidden_size=32, **over)
-    env = ControlEnv(num_envs=n, config="heading", aero_backend="distilled", device="cuda")
+    cfg = RLConfig(**{**dict(buffer_size=8, data_chunk_length=8, num_mini_batch=2,
+                             ppo_epoch=2, hidden_sizes=(32, 32), act_hidden_sizes=(32,),
+                             recurrent_hidden_size=32), **over})
+    env = (env_class or ControlEnv)(num_envs=n, config="heading", aero_backend="distilled",
+                                    device="cuda")
     return F16SimRunner(env, cfg, run_dir=str(tmp_path), mesh=mesh)
+
+
+def eager_collect(run, carry):
+    """F16SimRunner.collect as it ran before its CUDA graphs: each step's
+    act, env step and bookkeeping on new tensors, with no step tensors and
+    no graph. The reference the runner's collect is held to, bit for bit;
+    returns (carry, batch, counters)."""
+    from neuralplane_tpu_torch.algorithms.ppo.buffer import RolloutBatch
+    from neuralplane_tpu_torch.runner import RolloutCarry
+    T, L = run.cfg.buffer_size, run.cfg.data_chunk_length
+    n, dev = run.n, run.device
+
+    def buf(rows, *shape):
+        return torch.empty((rows, n, *shape), dtype=torch.float32, device=dev)
+    obs = buf(T + 1, carry.obs.shape[1])
+    actions = buf(T, run.policy.spec.act_dim)
+    rewards, logp = buf(T, 1), buf(T, 1)
+    masks, bad_masks, values = buf(T + 1, 1), buf(T + 1, 1), buf(T + 1, 1)
+    h0_a = buf(T // L, *carry.h_actor.shape[1:])
+    h0_c = buf(T // L, *carry.h_critic.shape[1:])
+    done_total = torch.zeros((), dtype=torch.int64, device=dev)
+    bad_total = torch.zeros((), dtype=torch.int64, device=dev)
+    counters = {}
+    with torch.no_grad():
+        for c in range(T // L):
+            h0_a[c], h0_c[c] = carry.h_actor, carry.h_critic
+            for t in range(c * L, (c + 1) * L):
+                v, a, lp, h_a, h_c = run.policy.get_actions(
+                    carry.obs, carry.h_actor, carry.h_critic, carry.masks, run.generator)
+                env_state, out = run.env.step(carry.env_state, a)
+                dones_env, bad_env, reset_env = run._env_flags(
+                    out.done, out.bad_done, out.exceed_time_limit)
+                keep = 1.0 - reset_env.float()
+                obs[t], actions[t], rewards[t] = carry.obs, a, out.reward[:, None]
+                masks[t], bad_masks[t] = carry.masks, carry.bad_masks
+                logp[t], values[t] = lp, v
+                done_total += out.done.sum()
+                bad_total += out.bad_done.sum()
+                for k, x in (out.info or {}).items():
+                    counters[k] = x + counters[k] if k in counters else x
+                carry = RolloutCarry(
+                    env_state=env_state, obs=out.obs, h_actor=h_a * keep[:, :, None],
+                    h_critic=h_c * keep[:, :, None], masks=1.0 - dones_env.float(),
+                    bad_masks=1.0 - bad_env.float())
+        obs[T], masks[T], bad_masks[T] = carry.obs, carry.masks, carry.bad_masks
+        values[T] = run.policy.get_values(carry.obs, carry.h_critic, carry.masks)
+    counters["episodes_reached_target"] = done_total
+    counters["episodes_failed"] = bad_total
+    batch = RolloutBatch(obs=obs, actions=actions, rewards=rewards, masks=masks,
+                         bad_masks=bad_masks, action_log_probs=logp, value_preds=values,
+                         rnn_states_actor=h0_a, rnn_states_critic=h0_c)
+    return carry, batch, counters
+
+
+def rollout_start(run, carry):
+    """What a collect starts from besides the policy: copies of the carry
+    and of the runner's and the env's generator states."""
+    import copy
+    return copy.deepcopy(carry), run.generator.get_state(), run.env.generator.get_state()
+
+
+def from_start(run, start):
+    """Set the generators back to `start`; returns a copy of its carry."""
+    import copy
+    carry, gen, env_gen = start
+    run.generator.set_state(gen)
+    run.env.generator.set_state(env_gen)
+    return copy.deepcopy(carry)
+
+
+BATCH_FIELDS = ("obs", "actions", "rewards", "masks", "bad_masks", "action_log_probs",
+                "value_preds", "rnn_states_actor", "rnn_states_critic")
+
+
+def assert_same_collect(got, want):
+    """Two (batch, counters, runner generator state) triples, bit for bit."""
+    (b, counters, gen), (wb, wcounters, wgen) = got, want
+    for k in BATCH_FIELDS:
+        assert torch.equal(getattr(b, k), getattr(wb, k)), k
+    assert list(counters) == list(wcounters)
+    for k in counters:
+        assert counters[k].dtype == wcounters[k].dtype and torch.equal(counters[k], wcounters[k]), k
+    assert torch.equal(gen, wgen)
+
+
+def step_counting_env_class():
+    """ControlEnv counting its `step` calls from Python (as the benchmark's
+    recording env wraps `step` per call)."""
+    from neuralplane_tpu_torch.envs import ControlEnv
+
+    class StepCounting(ControlEnv):
+        calls = 0
+
+        def step(self, state, action):
+            self.calls += 1
+            return super().step(state, action)
+    return StepCounting
 
 
 @pytest.mark.cuda
@@ -333,6 +432,82 @@ def test_collect_launches_env_step_once_per_step(tmp_path):
     run.close()
     assert all(np.isfinite(v) for v in metrics.values())
     assert not torch.equal(before, run.policy.actor.mu.weight.detach())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("profiled", [False, True])
+def test_collect_graphs_match_the_eager_collect(tmp_path, profiled):
+    """Two 16-step collects (chunks of 8) on the graph path and two of the
+    eager collect, from the same policy, env state and generator states:
+    bit-equal batches and counts, and the runner's generator where the eager
+    draws leave it after each collect (the update's permutations follow
+    from it). env.step is called from Python once per step and launches
+    env_step once; the act and bookkeeping graphs are captured once, also
+    when the first collect runs under torch.profiler."""
+    from contextlib import nullcontext
+    from torch.profiler import ProfilerActivity, profile
+    run = card_runner(tmp_path, buffer_size=16, data_chunk_length=8,
+                      env_class=step_counting_env_class())
+    start = rollout_start(run, run.init_carry(run.next_seed()))
+    carry, got = from_start(run, start), []
+    step_cuda.env_step.launches = 0
+    for i in range(2):
+        with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+              if profiled and i == 0 else nullcontext()):
+            carry, batch, (_, counters) = run.collect(carry)
+        got.append((batch, counters, run.generator.get_state()))
+    torch.cuda.synchronize()
+    assert run.env.calls == 32 and step_cuda.env_step.launches == 32
+    assert run._step.captures == 1 and run._step.graphs is not None
+    carry, want = from_start(run, start), []
+    for _ in range(2):
+        carry, batch, counters = eager_collect(run, carry)
+        want.append((batch, counters, run.generator.get_state()))
+    run.close()
+    for g, w in zip(got, want):
+        assert_same_collect(g, w)
+
+
+@pytest.mark.cuda
+def test_collect_graphs_follow_the_policys_weights(tmp_path):
+    """After a capture, new weights loaded in place (load_state_dict keeps
+    the storage) are replayed without a new capture: the next collect is
+    the eager collect's under the new weights, bit for bit, and its
+    log-probs and values differ from the old weights'. After
+    `policy.to("cpu")` and back onto new storage the runner captures anew
+    rather than replay the old storage, and again matches the eager
+    collect."""
+    run = card_runner(tmp_path, buffer_size=16, data_chunk_length=8)
+    start = rollout_start(run, run.init_carry(run.next_seed()))
+    run.collect(from_start(run, start))
+    first = run._step
+    assert first.captures == 1
+
+    def both():
+        _, b, (_, c) = run.collect(from_start(run, start))
+        got = (b, c, run.generator.get_state())
+        _, wb, wc = eager_collect(run, from_start(run, start))
+        assert_same_collect(got, (wb, wc, run.generator.get_state()))
+        return b
+    old = both()
+    g = torch.Generator().manual_seed(7)
+    new = {k: v.cpu() + 0.05 * torch.randn(v.shape, generator=g)
+           for k, v in run.policy.state_dict().items()}
+    ptrs = [p.data_ptr() for p in run.policy.parameters()]
+    run.policy.load_state_dict(new)
+    assert [p.data_ptr() for p in run.policy.parameters()] == ptrs
+    b = both()
+    assert run._step is first and first.captures == 1
+    assert not torch.equal(b.action_log_probs, old.action_log_probs)
+    assert not torch.equal(b.value_preds, old.value_preds)
+    run.policy.to("cpu")
+    hold = [torch.empty_like(p, device="cuda") for p in run.policy.parameters()]
+    run.policy.to("cuda")
+    assert [p.data_ptr() for p in run.policy.parameters()] != ptrs
+    both()
+    assert run._step is not first and run._step.captures == 1
+    del hold
+    run.close()
 
 
 @pytest.mark.cuda

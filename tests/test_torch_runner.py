@@ -9,6 +9,11 @@
   from different generators) at the env tolerances of
   tests/test_torch_env.py (obs 2e-5, reward 1e-4, flags exact) and 1e-5 for
   log-probabilities, values and the chunk-start GRU states.
+- The same collect (heading, n = 8, stacked) through the runner's step
+  tensors, which a card captures into CUDA graphs, run eagerly on the CPU:
+  bit for bit the collect as it ran before the graphs
+  (tests/test_torch_cuda.py:eager_collect) over two collects, the
+  generators left alike, and no CUDA graph built.
 - The port's own collect + train + save/restore + eval at a tiny size.
 - The committed heading checkpoint read without JAX: its actor against the
   JAX actor on fixed observations, its Adam state carried across.
@@ -97,6 +102,34 @@ def test_collect_replays_jax_collect(tmp_path, monkeypatch):
         np.testing.assert_array_equal(getattr(b, name).numpy(), getattr(jb, name))
     assert {k: int(v) for k, v in counters.items()} == \
         {k: int(v) for k, v in jcounters.items()}
+
+
+@pytest.mark.parametrize("noise_scale", [0.0, 0.01])
+def test_step_tensors_collect_is_the_eager_collect_on_cpu(tmp_path, monkeypatch, noise_scale):
+    from test_torch_cuda import assert_same_collect, eager_collect, from_start, rollout_start
+
+    def no_graph(*a, **k):
+        raise AssertionError("a CUDA graph built on the CPU")
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", no_graph)
+    monkeypatch.setattr(torch.cuda, "graph", no_graph)
+    env = ControlEnv(num_envs=8, config=load_config("heading", noise_scale=noise_scale),
+                     task="heading", aero_backend="stacked", device="cpu")
+    run = F16SimRunner(env, RLConfig(**NET), run_dir=str(tmp_path))
+    start = rollout_start(run, run.init_carry(run.next_seed()))
+    carry, got = from_start(run, start), []
+    for _ in range(2):
+        carry, batch, (_, counters) = run.collect(carry)
+        got.append((batch, counters, run.generator.get_state()))
+    assert run._step.graphs is None and run._step.stream is None and run._step.captures == 0
+    env_gen = run.env.generator.get_state()
+    carry, want = from_start(run, start), []
+    for _ in range(2):
+        carry, batch, counters = eager_collect(run, carry)
+        want.append((batch, counters, run.generator.get_state()))
+    assert torch.equal(run.env.generator.get_state(), env_gen)
+    for g, w in zip(got, want):
+        assert_same_collect(g, w)
+    run.close()
 
 
 def tiny_runner(tmp_path, name="a", **over):

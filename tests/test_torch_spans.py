@@ -17,7 +17,8 @@ epochs x 2 minibatches.
   bit-identical parameters after the update, spans on or off.
 - On the card (`-m cuda`): the profiler's device operations hold no span's
   name, and a collect launches as many device operations with the spans on
-  as with them off.
+  as with them off; after the warm-up collect each `policy.act` holds one
+  `policy.act.replay` (the act's CUDA graph replayed).
 """
 import pytest
 import torch
@@ -30,6 +31,7 @@ from neuralplane_tpu_torch.utils import profiling
 
 T, L, N = 16, 8, 4
 COLLECT = ("runner.collect", "policy.act", "env.step")
+REPLAY = "policy.act.replay"
 UPDATE = ("trainer.update", "trainer.forward", "trainer.backward", "trainer.optimizer")
 PHASES = UPDATE[1:]
 
@@ -62,17 +64,20 @@ def names(spans):
     return [s.name for s in spans]
 
 
-def check_tree(spans):
-    """The counts and parents of one collect and one update."""
-    by = {n: [s for s in spans if s.name == n] for n in COLLECT + UPDATE}
+def check_tree(spans, replays=False):
+    """The counts and parents of one collect and one update; with
+    `replays`, one `policy.act.replay` inside each `policy.act`."""
+    by = {n: [s for s in spans if s.name == n] for n in COLLECT + UPDATE + (REPLAY,)}
     assert len(by["runner.collect"]) == 1 and len(by["trainer.update"]) == 1
     assert len(by["policy.act"]) == T and len(by["env.step"]) == T
     assert all(len(by[n]) == 4 for n in PHASES)
-    assert set(names(spans)) == set(COLLECT + UPDATE)
+    assert set(names(spans)) == set(COLLECT + UPDATE + ((REPLAY,) if replays else ()))
     collect, update = spans.index(by["runner.collect"][0]), spans.index(by["trainer.update"][0])
     assert spans[collect].parent is None and spans[update].parent is None
     for s in by["policy.act"] + by["env.step"]:
         assert s.parent == collect
+    acts = [spans.index(s) for s in by["policy.act"]]
+    assert sorted(s.parent for s in by[REPLAY]) == (acts if replays else [])
     for n in PHASES:
         assert all(s.parent == update for s in by[n])
     for s in spans:
@@ -195,7 +200,7 @@ def test_on_the_card_spans_add_no_device_operation(tmp_path, recorder, monkeypat
     recorder.clear()
     tr_on, carry = traced(carry)
     spans = recorder.recorded()
-    check_tree(spans)
+    check_tree(spans, replays=True)
     assert all(s.device_ms is not None and s.device_ms > 0 for s in spans if s.name in PHASES)
     assert all(s.device_ms is None for s in spans if s.name not in PHASES)
     recorder.clear()
@@ -204,7 +209,7 @@ def test_on_the_card_spans_add_no_device_operation(tmp_path, recorder, monkeypat
         tr_off, carry = traced(carry)
     assert recorder.recorded() == []
     device_names = {n for _, _, n in tr_on.device_ops}
-    assert not device_names & set(COLLECT + UPDATE)
+    assert not device_names & set(COLLECT + UPDATE + (REPLAY,))
     assert tr_on.launches("collect") > 0
     assert tr_on.launches("collect") == tr_off.launches("collect")
     assert tr_on.launches() == tr_off.launches()
