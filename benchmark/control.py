@@ -9,7 +9,8 @@ numbers: "program" (the lower readings), "control" (the reference in the
 program's place one precision step below what the configuration states:
 float8 surrogate operands, TF32 network products) and the faults a cell
 can have ("fault:unchanged", "fault:altered", and for training
-"fault:half"), planted in the reference put in the program's place.
+"fault:half"), planted in the reference put in the program's place. The
+modes are the cell's traffic kind's (`MODES` of `benchmark/kinds/<kind>.py`).
 The benchmark's own runs never run this.
 """
 from __future__ import annotations
@@ -23,9 +24,6 @@ import sys
 import torch
 
 from . import harness, run
-
-MODES = {"sim": ("program", "control", "fault:unchanged", "fault:altered"),
-         "train": ("program", "control", "fault:unchanged", "fault:altered", "fault:half")}
 
 
 def main(argv=None) -> int:
@@ -43,7 +41,8 @@ def main(argv=None) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    modes = args.modes.split(",") if args.modes else MODES[cell["traffic"]["kind"]]
+    modes = args.modes.split(",") if args.modes else \
+        harness.kind_module(cell["traffic"]["kind"]).MODES
     for seed in (int(s) for s in args.seeds.split(",")):
         r = run.driver(cell, seed)
         r.setup()

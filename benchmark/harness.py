@@ -3,11 +3,27 @@ clock, the device's description, the import check and the result line.
 
 A cell of `BENCHMARK.json` names a configuration and a traffic mix; the
 configuration's entry names its file, the traffic is
-`benchmark/traffic/<name>.json` (its "kind" picks the driver that reads
-it), the limits of the cell's comparison, with the readings they were set from,
-are `benchmark/limits/<cell>.json`
-and each per-layer metric is `benchmark/metrics/<name>.py`. A later cell,
-configuration or metric is added by adding files and entries only.
+`benchmark/traffic/<name>.json`, the limits of the cell's comparison, with
+the readings they were set from, are `benchmark/limits/<cell>.json` and
+each per-layer metric is `benchmark/metrics/<name>.py`. The traffic's
+"kind" names its driver, `benchmark/kinds/<kind>.py`, which gives
+
+- `Run(cell, seed, device)`: `setup()`; `window(seconds, tracer)` -> a dict
+  with "steps" or "iterations" (the result's `attempted`) and what the
+  next three read; `end_to_end(w)` -> the cell's end-to-end metrics but
+  `setup_s` and `peak_mem_mib`; `context(w, tracer)` -> what the per-layer
+  readers read; `release()`, which frees the program's state;
+  `numbers(mode)` -> the compared numbers, judged against the limits;
+- `MODES`: the modes of `numbers` that `benchmark.control` reads, the
+  program's ("program"), the control's ("control") and each fault's;
+- `tiny(cell)`: the cell shrunk in place, and returned, to a size the CPU
+  tests hold.
+
+A later cell, configuration, metric or traffic kind is added by adding
+files and entries only: a new kind brings its driver, traffic, limits and
+readers, and its own planted faults in a test file of its own; the tests
+that drive every cell (`tests/test_bench_{reference,control,card}.py`)
+read the cells from `BENCHMARK.json`.
 """
 from __future__ import annotations
 
@@ -15,6 +31,7 @@ import importlib.util
 import json
 import math
 import os
+import re
 import sys
 import time
 from typing import Dict, List
@@ -22,6 +39,7 @@ from typing import Dict, List
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 FORBIDDEN = ("jax", "jaxlib", "flax", "neuralplane_tpu")
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 _T_IMPORTED = time.perf_counter()
 
 
@@ -56,6 +74,7 @@ def cell(manifest: dict, root: str, name: str) -> dict:
         raise CellError(f"workload {name!r} names an unknown config {entry['config']!r}")
     config = _json(os.path.join(root, conf_entry["file"]))
     traffic = _json(os.path.join(HERE, "traffic", f"{entry['traffic']}.json"))
+    kind_path(traffic.get("kind"))
     limits = _json(os.path.join(HERE, "limits", f"{name}.json"))["numbers"]
 
     def reported(metric):
@@ -72,7 +91,27 @@ def metric_reader(name: str):
     path = os.path.join(HERE, "metrics", f"{name}.py")
     if not os.path.exists(path):
         raise CellError(f"no reader benchmark/metrics/{name}.py")
-    module = f"benchmark_metric_{name.replace('.', '_')}"
+    return _load(f"benchmark_metric_{name.replace('.', '_')}", path)
+
+
+def kind_path(kind) -> str:
+    """The file of traffic kind `kind`'s driver; a kind whose name is not a
+    plain name (as a manifest name, with no "..") or that has no file is
+    refused."""
+    path = os.path.join(HERE, "kinds", f"{kind}.py")
+    if not (isinstance(kind, str) and NAME.match(kind) and ".." not in kind
+            and os.path.isfile(path)):
+        raise CellError(f"traffic kind {kind!r} has no driver")
+    return path
+
+
+def kind_module(kind: str):
+    """The driver module of traffic kind `kind` (benchmark/kinds/<kind>.py):
+    Run, MODES and tiny(cell)."""
+    return _load(f"benchmark_kind_{kind.replace('.', '_')}", kind_path(kind))
+
+
+def _load(module: str, path: str):
     spec = importlib.util.spec_from_file_location(module, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)

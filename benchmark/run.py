@@ -2,10 +2,13 @@
 
     python3 -m benchmark.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-from the root of a checkout that holds `BENCHMARK.json`. It needs CUDA and
-the cell's number of cards; without them it exits non-zero and prints no
-result. Set-up (process start to the window's start: imports, the
-kernels' build or load, the env, the policy, the warm-up) is `setup_s`.
+from the root of a checkout that holds `BENCHMARK.json`. The cell's
+traffic kind names its driver, `benchmark/kinds/<kind>.py` (see
+`harness`); a cell whose files or driver are missing exits 2 before any
+device work. It needs CUDA and the cell's number of cards; without them
+it exits non-zero and prints no result. Set-up (process start to the
+window's start: imports, the kernels' build or load, the env, the policy,
+the warm-up) is `setup_s`.
 With `--trace 0` the line holds the cell's end-to-end metrics; with
 `--trace 1` its per-layer metrics, read from torch.profiler and the
 benchmark's own spans, and the device's busy and window seconds. After
@@ -22,8 +25,6 @@ import os
 import sys
 
 from . import harness
-
-KINDS = {"sim": ("benchmark.sim", "SimRun"), "train": ("benchmark.training", "TrainRun")}
 
 
 def parse(argv=None) -> argparse.Namespace:
@@ -48,12 +49,8 @@ def cache_env(root: str) -> None:
 
 
 def driver(cell: dict, seed: int, device: str = "cuda"):
-    import importlib
-    kind = cell["traffic"]["kind"]
-    if kind not in KINDS:
-        raise harness.CellError(f"traffic kind {kind!r} has no driver")
-    module, cls = KINDS[kind]
-    return getattr(importlib.import_module(module), cls)(cell, seed, device)
+    """The cell's run, by its traffic kind's module (`benchmark/kinds/`)."""
+    return harness.kind_module(cell["traffic"]["kind"]).Run(cell, seed, device)
 
 
 def per_layer(cell: dict, ctx: dict) -> dict:

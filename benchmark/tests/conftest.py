@@ -1,6 +1,6 @@
-"""Shared helpers of the benchmark's CPU tests: cells of BENCHMARK.json
-shrunk to a size a test run holds (the same code paths, the program on its
-plain CPU versions)."""
+"""Shared helpers of the benchmark's CPU tests: the cells of BENCHMARK.json,
+shrunk by their traffic kind's `tiny` to a size a test run holds (the same
+code paths, the program on its plain CPU versions)."""
 from __future__ import annotations
 
 import copy
@@ -12,17 +12,16 @@ from benchmark import harness
 
 ROOT = harness.ROOT
 SEED = 3_000_000_019   # beyond 32 signed bits: a run takes any seed up to a little over 2**31
+CELLS = [w["name"] for w in harness.load_manifest(ROOT)["workloads"]]
+
+
+def kind_of(name: str) -> str:
+    return harness.cell(harness.load_manifest(ROOT), ROOT, name)["traffic"]["kind"]
 
 
 def tiny_cell(name: str) -> dict:
     cell = copy.deepcopy(harness.cell(harness.load_manifest(ROOT), ROOT, name))
-    if cell["traffic"]["kind"] == "sim":
-        cell["traffic"].update(aircraft=256, check_rows=128, check_within=40, warmup_steps=2)
-    else:
-        cell["config"].update(n_rollout_threads=6, buffer_size=16, data_chunk_length=4,
-                              num_mini_batch=3, ppo_epoch=2)
-        cell["traffic"].update(check_envs=4)
-    return cell
+    return harness.kind_module(cell["traffic"]["kind"]).tiny(cell)
 
 
 @pytest.fixture

@@ -8,8 +8,7 @@ import sys
 
 import pytest
 
-CELLS = ["control_distilled.sim_1e6", "heading_43nets.sim_1e6", "heading_43nets.train",
-         "control_distilled.train"]
+from .conftest import CELLS
 
 
 @pytest.mark.cuda

@@ -9,11 +9,10 @@ import pytest
 
 from benchmark import harness, run
 
-from .conftest import SEED, tiny_cell
+from .conftest import CELLS, SEED, tiny_cell
 
 
-@pytest.mark.parametrize("name", ["heading_43nets.train", "control_distilled.sim_1e6",
-                                  "control_distilled.train", "heading_43nets.sim_1e6"])
+@pytest.mark.parametrize("name", CELLS)
 def test_the_control_fails_the_limits(name):
     cell = tiny_cell(name)
     r = run.driver(cell, SEED, "cpu")

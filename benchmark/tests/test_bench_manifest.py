@@ -107,7 +107,10 @@ def test_workloads_and_metrics_follow_the_contract():
 @pytest.mark.parametrize("cell", [w["name"] for w in manifest()["workloads"]])
 def test_each_cells_files_are_found_by_name(cell):
     c = harness.cell(harness.load_manifest(ROOT), ROOT, cell)
-    assert c["traffic"]["kind"] in ("sim", "train")
+    kind = harness.kind_module(c["traffic"]["kind"])
+    assert {"program", "control"} <= set(kind.MODES) and callable(kind.tiny)
+    for method in ("setup", "window", "end_to_end", "context", "release", "numbers"):
+        assert callable(getattr(kind.Run, method))
     assert c["limits"] and all("limit" in v and "lower" in v for v in c["limits"].values())
     for v in c["limits"].values():
         # each limit lies between its two readings: above the program's,

@@ -14,10 +14,7 @@ import torch
 from benchmark import run
 from benchmark.reference import philox, policy
 
-from .conftest import ROOT, SEED, tiny_cell
-
-CELLS = ["heading_43nets.train", "control_distilled.sim_1e6", "control_distilled.train",
-         "heading_43nets.sim_1e6"]
+from .conftest import CELLS, ROOT, SEED, tiny_cell
 
 
 @pytest.mark.parametrize("name", CELLS)
